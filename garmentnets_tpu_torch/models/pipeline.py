@@ -1,0 +1,128 @@
+"""Stage-2 pipeline: volume aggregation -> 3D U-Net -> implicit WNF decoders,
+eval mode (torch port of garmentnets_tpu/models/pipeline.py).
+
+The frozen stage-1 network runs in eval mode. Submodule names follow the
+reference Lightning layout (`pointnet2_nocs`, `volume_agg.local_nn`,
+`unet_3d.abstract_3d_unet`, `volume_decoder.mlp`, `surface_decoder.mlp`).
+Losses, the task-space variant and the mc-surface head are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from garmentnets_tpu_torch.models.mlp import PointMLP
+from garmentnets_tpu_torch.models.pointnet2_nocs import (
+    PointNet2NOCS, PointNet2NOCSConfig, logits_to_nocs_bins)
+from garmentnets_tpu_torch.models.unet3d import UNet3D
+from garmentnets_tpu_torch.ops.grid_sample import grid_sample_trilinear
+from garmentnets_tpu_torch.ops.scatter import scatter_to_grid
+from garmentnets_tpu_torch.ops.virtual_grid import VirtualGrid
+
+
+class VolumeFeatureAggregator(nn.Module):
+    """Scatter per-point features (+ local offset, sim points, confidence)
+    into a [B, D, H, W, C] feature volume."""
+
+    def __init__(self, nn_channels: Sequence[int] = (137, 137, 128),
+                 batch_norm: bool = True,
+                 grid_shape: Tuple[int, int, int] = (32, 32, 32),
+                 reduce_method: str = "max"):
+        super().__init__()
+        self.local_nn = PointMLP(nn_channels, batch_norm)
+        self.grid = VirtualGrid(grid_shape=tuple(grid_shape))
+        self.reduce_method = reduce_method
+
+    def forward(self, nocs_data: dict) -> torch.Tensor:
+        points = nocs_data["pos"]                                 # [B,N,3]
+        idxs = self.grid.get_points_grid_idxs(points)
+        features = torch.cat([
+            nocs_data["x"], points - self.grid.idxs_to_points(idxs),
+            nocs_data["sim_points"], nocs_data["pred_confidence"]], dim=-1)
+        features = self.local_nn(features)
+        vol = scatter_to_grid(features, self.grid.flatten_idxs(idxs),
+                              self.grid.num_cells, self.reduce_method)
+        return vol.reshape(points.shape[0], *self.grid.grid_shape,
+                           features.shape[-1])
+
+
+class ImplicitWNFDecoder(nn.Module):
+    """Trilinear feature lookup + MLP head.
+
+    The reference decoder feeds query points to F.grid_sample unflipped, so
+    with its [B, C, Gx, Gy, Gz] volume the lookup lands at V[qz, qy, qx];
+    the query is reversed here to sample the same way."""
+
+    def __init__(self, nn_channels: Sequence[int] = (128, 256, 256, 1),
+                 batch_norm: bool = True):
+        super().__init__()
+        self.mlp = PointMLP(nn_channels, batch_norm)
+
+    def forward(self, features_grid: torch.Tensor,
+                query_points: torch.Tensor) -> torch.Tensor:
+        """features_grid [B, D, H, W, C]; query [B, M, 3] -> [B, M, C']."""
+        sampled = grid_sample_trilinear(features_grid,
+                                        query_points.flip(-1))
+        return self.mlp(sampled)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    pointnet2: PointNet2NOCSConfig = PointNet2NOCSConfig()
+    volume_agg_nn_channels: Tuple[int, ...] = (137, 137, 128)
+    volume_agg_batch_norm: bool = True
+    grid_shape: Tuple[int, int, int] = (32, 32, 32)
+    reduce_method: str = "max"
+    unet_in_channels: int = 128
+    unet_out_channels: int = 128
+    unet_f_maps: int = 32
+    unet_layer_order: str = "gcr"
+    unet_num_groups: int = 8
+    unet_num_levels: int = 4
+    volume_decoder_channels: Tuple[int, ...] = (128, 256, 256, 1)
+    surface_decoder_channels: Tuple[int, ...] = (128, 256, 256, 3)
+    decoder_batch_norm: bool = True
+
+
+class ConvImplicitWNFPipeline(nn.Module):
+    def __init__(self, cfg: PipelineConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        self.pointnet2_nocs = PointNet2NOCS(c.pointnet2)
+        self.volume_agg = VolumeFeatureAggregator(
+            c.volume_agg_nn_channels, c.volume_agg_batch_norm, c.grid_shape,
+            c.reduce_method)
+        self.unet_3d = UNet3D(
+            c.unet_in_channels, c.unet_out_channels, f_maps=c.unet_f_maps,
+            layer_order=c.unet_layer_order, num_groups=c.unet_num_groups,
+            num_levels=c.unet_num_levels)
+        self.volume_decoder = ImplicitWNFDecoder(c.volume_decoder_channels,
+                                                 c.decoder_batch_norm)
+        self.surface_decoder = ImplicitWNFDecoder(c.surface_decoder_channels,
+                                                  c.decoder_batch_norm)
+
+    def pointnet2_forward(self, x: torch.Tensor, pos: torch.Tensor) -> dict:
+        """Frozen stage 1: NOCS bins and confidence from the logits."""
+        result = self.pointnet2_nocs(x, pos)
+        pred_nocs, confidence = logits_to_nocs_bins(
+            self.cfg.pointnet2, result["per_point_logits"])
+        result["nocs_data"] = {
+            "x": result["per_point_features"],
+            "pos": pred_nocs,
+            "sim_points": pos,
+            "pred_confidence": confidence,
+        }
+        return result
+
+    def unet3d_forward(self, nocs_data: dict) -> torch.Tensor:
+        """-> feature volume [B, D, H, W, C]."""
+        return self.unet_3d(self.volume_agg(nocs_data))
+
+    def volume_decoder_forward(self, feature_volume, query_points):
+        return self.volume_decoder(feature_volume, query_points)[..., 0]
+
+    def surface_decoder_forward(self, feature_volume, query_points):
+        return self.surface_decoder(feature_volume, query_points)

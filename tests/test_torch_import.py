@@ -1,0 +1,67 @@
+"""Import isolation of the port: every module of garmentnets_tpu_torch and
+chip_smoke.py imports with jax and garmentnets_tpu blocked, builds nothing
+at import time, and chip_smoke.py exits non-zero without a CUDA device."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "garmentnets_tpu"):
+    sys.modules[name] = None
+import garmentnets_tpu_torch
+mods = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+    garmentnets_tpu_torch.__path__, "garmentnets_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+leaked = sorted(k for k, v in sys.modules.items()
+                if v is not None and k.split(".")[0] in
+                ("jax", "jaxlib", "flax", "garmentnets_tpu"))
+assert not leaked, leaked
+from garmentnets_tpu_torch.kernels import _build
+assert not _build._LIBS, "a library was built at import time"
+print(len(mods))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_port_sources_name_no_jax_import():
+    """No source file of the port imports jax, flax or the JAX package."""
+    bad = []
+    for f in list((ROOT / "garmentnets_tpu_torch").rglob("*.py")) + [
+            ROOT / "chip_smoke.py"]:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            if (s.startswith(("import ", "from ")) and s.split()[1].split(
+                    ".")[0] in ("jax", "jaxlib", "flax", "garmentnets_tpu")):
+                bad.append(f"{f.name}: {s}")
+    assert not bad, bad
+
+
+def test_chip_smoke_fails_without_cuda():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
