@@ -15,9 +15,14 @@ Needs one CUDA card; exits non-zero without one. Phases, each fatal:
   4. the main path: PredictEngine at the full width of PipelineConfig()
      (B=8, N=6000, 128^3 WNF) with seeded random weights, driving
      encode -> extract_meshes -> warp_batch with the launch counts reset
-     just before and read just after; then the same engine at a tiny size
+     just before and read just after;
+  5. the server: PredictService + make_http_server at the same width on a
+     checkpoint written by save_pipeline_checkpoint, 24 garments from 4
+     concurrent clients through predict_remote, with launch counts per
+     device batch, the overlap of host MC with the next encode, and one
+     request against a direct engine run; then the engine at a tiny size
      on the card against the CPU path;
-  5. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
+  6. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -118,6 +123,43 @@ def decode_inputs(gen, coarse_shape, widths, dev):
     return fv, layers
 
 
+def sa_layers(gen, widths, dev):
+    """Folded layers (K, b, g, s) with centred biases, so the ReLUs are
+    live and the set-abstraction output varies."""
+    import torch
+    return [tuple(t.to(dev) for t in (
+        (torch.rand(cin, cout, generator=gen) - 0.5) * (2 / cin ** 0.5),
+        torch.rand(cout, generator=gen) - 0.5,
+        0.5 + torch.rand(cout, generator=gen),
+        torch.rand(cout, generator=gen) - 0.5))
+        for cin, cout in zip(widths[:-1], widths[1:])]
+
+
+def sa_inputs(gen, B, n_points, m, cin, widths, radius, dev, pos=None):
+    """One set-abstraction call as stage 1 makes it: zero-mean features,
+    points in a cube of side 0.35 (so that most balls of radius 0.05 hold
+    64 neighbours at 6000 points), centers from the port's FPS and slots
+    from its ball query (K=64)."""
+    import torch
+    from garmentnets_tpu_torch.ops.pointcloud import (
+        ball_query, furthest_point_sampling, gather_rows)
+    if pos is None:
+        pos = (torch.rand(B, n_points, 3, generator=gen) * 0.35).to(dev)
+    x = (torch.rand(B, n_points, cin, generator=gen) - 0.5).to(dev)
+    centers = gather_rows(pos, furthest_point_sampling(pos, m)).contiguous()
+    idx, mask = ball_query(pos, centers, radius, k=64)
+    return x, pos, centers, idx, mask, sa_layers(gen, widths, dev)
+
+
+def sa_ops(mask, layers) -> float:
+    """Operations of one set-abstraction call over the valid slots: per
+    slot the relative position (3), each layer's product (2 cin cout) and
+    its bias, ReLU and affine (4 cout), and the max (c_out)."""
+    per_slot = 3 + sum(2 * k.shape[0] * k.shape[1] + 4 * k.shape[1]
+                       for k, _, _, _ in layers) + layers[-1][0].shape[1]
+    return float(mask.sum()) * per_slot
+
+
 # ---------------------------------------------------------------------------
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at full-width shapes."""
@@ -126,11 +168,13 @@ def phase_kernels(dev) -> dict:
     from garmentnets_tpu_torch.kernels.dense_decode import dense_decode_cuda
     from garmentnets_tpu_torch.kernels.fps import furthest_point_sampling_cuda
     from garmentnets_tpu_torch.kernels.ggm import ggm_cuda
+    from garmentnets_tpu_torch.kernels.sa import sa_cuda
     from garmentnets_tpu_torch.ops.dense_decode import (
         coarse_first_layer, dense_decode_plain)
     from garmentnets_tpu_torch.ops.gaussian import ggm_plain, ggm_taps
     from garmentnets_tpu_torch.ops.pointcloud import (
         furthest_point_sampling_plain, gather_rows)
+    from garmentnets_tpu_torch.ops.set_abstraction import sa_fused_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -244,6 +288,60 @@ def phase_kernels(dev) -> dict:
         replaces="garmentnets_tpu/ops/gaussian_pallas.py:93",
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
         library_ms=lms)
+    del vol, k, p
+
+    # ---- set abstraction: SA1 6->64->64->128 at [8,6000] -> 3000, SA2
+    # 131->128->128->256 at [8,3000] -> 750, K=64 ----
+    sa = dict(ms=0.0, plain_ms=0.0, bound=0.0, t_ops=0.0, t_bytes=0.0,
+              ops_all=0.0, err=0.0)
+    pos = None
+    for n_pts, m, cin, widths, radius in (
+            (N, N // 2, 3, (6, 64, 64, 128), 0.05),
+            (N // 2, N // 8, 128, (131, 128, 128, 256), 0.1)):
+        args = sa_inputs(gen, B, n_pts, m, cin, widths, radius, dev, pos)
+        x, pos_in, centers, idx, mask, layers = args
+        k = sa_cuda(*args)
+        p = sa_fused_plain(*args)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        std = float(p.std())
+        share = float(mask.float().mean())
+        log(f"sa [{B},{n_pts},{cin}] -> [{B},{m},{widths[-1]}]: max abs err "
+            f"{err:.3e} (limit 1e-4), output std {std:.3e}, valid slots "
+            f"{share:.4f}")
+        check(std >= 0.1, f"sa check output is flat at N={n_pts}")
+        check(err <= 1e-4 and bool(torch.isfinite(k).all()),
+              f"sa disagrees with its plain version at N={n_pts}")
+        ms = time_ms(lambda: sa_cuda(*args), 10)
+        pms = time_ms(lambda: sa_fused_plain(*args), 3)
+        ops = sa_ops(mask, layers)
+        ops_all = ops / share
+        n_bytes = (x.numel() + pos_in.numel() + centers.numel()
+                   + B * m * widths[-1]) * 4 + idx.numel() * 9 + sum(
+                       t.numel() * 4 for lay in layers for t in lay)
+        bnd, by = bound_ms(n_bytes, ops, F32_FLOPS)
+        log(f"sa N={n_pts} M={m}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"bound {bnd:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP over the "
+            f"valid slots, {ops_all / F32_FLOPS * 1e3:.4f} ms over all "
+            f"{idx.numel()} slots), {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+            f"achieved")
+        sa["ms"] += ms
+        sa["plain_ms"] += pms
+        sa["bound"] += bnd
+        sa["t_ops"] += bound_ms(0, ops, F32_FLOPS)[0]
+        sa["t_bytes"] += bound_ms(n_bytes, 0, F32_FLOPS)[0]
+        sa["ops_all"] += ops_all
+        sa["err"] = max(sa["err"], err)
+        pos = centers
+    by = "operations" if sa["t_ops"] >= sa["t_bytes"] else "bytes"
+    log(f"sa both calls: kernel {sa['ms']:.3f} ms, plain "
+        f"{sa['plain_ms']:.3f} ms, bound {sa['bound']:.4f} ms ({by}), "
+        f"{sa['ops_all'] / F32_FLOPS * 1e3:.4f} ms over all slots")
+    rows["sa"] = dict(
+        name="sa", route="cuda", source="garmentnets_tpu_torch/csrc/sa.cu",
+        replaces="garmentnets_tpu/kernels/sa_pallas.py:166",
+        max_abs_err=sa["err"], ms=sa["ms"], plain_ms=sa["plain_ms"],
+        bound_ms=sa["bound"], bound_by=by, library_ms=None)
     return rows
 
 
@@ -299,7 +397,7 @@ def phase_main_path(dev) -> dict:
     engine.close()
     log(f"main path launches over {N_BATCHES} batches: {launches}")
     check(launches == {"fps": 2 * N_BATCHES, "dense_decode": N_BATCHES,
-                       "ggm": N_BATCHES},
+                       "ggm": N_BATCHES, "sa": 2 * N_BATCHES},
           f"unexpected launch counts {launches}")
 
     for key in ("wnf_ggm", "feature_volume", "pred_nocs", "global_logits"):
@@ -327,6 +425,221 @@ def phase_main_path(dev) -> dict:
     return launches
 
 
+def serve_request(rng, n_garments: int):
+    """One request: n_garments clouds of the same 5000-7000 points (the
+    service resamples them to N)."""
+    n = int(rng.randint(5000, 7001))
+    return (rng.rand(n_garments, n, 3).astype(np.float32),
+            (rng.rand(n_garments, n, 3) - 0.5).astype(np.float32))
+
+
+def normalized_batch(*requests):
+    """The service's zero-padded [B, N, 3] batch of these requests'
+    garments, in order."""
+    from garmentnets_tpu_torch.harness.serve import _normalize_cloud
+    bx = np.zeros((B, N, 3), np.float32)
+    bp = np.zeros((B, N, 3), np.float32)
+    i = 0
+    for x, pos in requests:
+        for b in range(len(x)):
+            bx[i], bp[i] = _normalize_cloud(x[b], pos[b], N, seed=b)
+            i += 1
+    return bx, bp
+
+
+def live_head_(model, x, pos, dev, share=0.01) -> None:
+    """Make the random network's WNF cross the iso level 0.5 on about
+    `share` of the voxels: the volume decoder's head becomes relu(z + b)
+    (its BatchNorm the identity), z is read once with b = 100 (so the ReLU
+    passes everything), and b is set to 0.5 minus z's (1 - share)
+    quantile."""
+    import torch
+    from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
+    lin, bn = model.volume_decoder.mlp[-1][0], model.volume_decoder.mlp[-1][2]
+    with torch.no_grad():
+        bn.weight.fill_(1.0)
+        bn.bias.zero_()
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - bn.eps)
+        lin.bias.fill_(100.0)
+    probe = PredictEngine(model.cfg, model.state_dict(), volume_size=VOL,
+                          return_volume=True, device=dev)
+    z = probe.encode(x, pos)["wnf_volume"] - 100.0
+    probe.close()
+    q = float(torch.quantile(z.flatten()[::7], 1.0 - share))
+    with torch.no_grad():
+        lin.bias.fill_(0.5 - q)
+
+
+def phase_serve(dev) -> dict:
+    """The port's server at full width on the card: PredictService on a
+    checkpoint written by save_pipeline_checkpoint, behind
+    make_http_server, driven through predict_remote by 4 clients, each
+    with its 3 requests of 2 garments in flight at once (24 garments; with
+    one request at a time the 4 clients would fill exactly one batch and
+    the dispatcher would never hold a next batch to overlap)."""
+    import pathlib
+    import tempfile
+    import threading
+    from urllib.request import urlopen
+
+    import torch
+    from garmentnets_tpu_torch.core.checkpoint import (
+        save_pipeline_checkpoint)
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.harness.serve import (
+        PredictService, make_http_server, predict_remote)
+    from garmentnets_tpu_torch.kernels import _build
+    from garmentnets_tpu_torch.models.pipeline import (
+        ConvImplicitWNFPipeline, PipelineConfig)
+    from garmentnets_tpu_torch.ops.isosurface import read_page_counts
+
+    n_clients, n_requests, per_request = 4, 3, 2
+    rng = np.random.RandomState(1)
+    traffic = [[serve_request(rng, per_request) for _ in range(n_requests)]
+               for _ in range(n_clients)]
+    lone = serve_request(rng, per_request)    # checked against the engine
+    cfg = PipelineConfig()
+    model = ConvImplicitWNFPipeline(cfg)
+    seeded_init_(model, 1)
+    live_head_(model, *normalized_batch(
+        *(traffic[c][0] for c in range(n_clients))), dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = pathlib.Path(tmp) / "serve.ckpt"
+        save_pipeline_checkpoint(ckpt, cfg, model.state_dict())
+        service = PredictService(ckpt, batch_size=B, num_points=N,
+                                 volume_size=VOL, batch_window_ms=20.0,
+                                 device=dev)
+    httpd = make_http_server(service, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        predict_remote(url, *serve_request(rng, 1))         # warm-up batch
+        _build.reset_launch_counts()
+        before = dict(service.stats)
+        results, latencies, errors = {}, [], []
+
+        def send(c, r):
+            t0 = time.perf_counter()
+            try:
+                results[c, r] = predict_remote(url, *traffic[c][r])
+                latencies.append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        def client(c):
+            reqs = [threading.Thread(target=send, args=(c, r))
+                    for r in range(n_requests)]
+            for t in reqs:
+                t.start()
+            for t in reqs:
+                t.join(timeout=300)
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(n_clients)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        stats = dict(service.stats)
+        check(not errors and not any(t.is_alive() for t in clients),
+              f"serve requests failed: {errors}")
+        n_batches = stats["batches"] - before["batches"]
+        overlapped = stats["mc_overlapped"] - before["mc_overlapped"]
+        with urlopen(url + "/healthz") as resp:
+            health = json.loads(resp.read())
+
+        n_ok, n_verts = 0, []
+        for (c, r), res in sorted(results.items()):
+            check(len(res) == per_request, "wrong result count")
+            for g in res:
+                check("error" not in g, f"garment failed: {g.get('error')}")
+                check(g["pred_nocs"].shape == (N, 3)
+                      and np.isfinite(g["pred_nocs"]).all()
+                      and np.isfinite(g["pred_nocs_confidence"]).all(),
+                      "NOCS output malformed")
+                if int(g["ok"]):
+                    n_ok += 1
+                    n_verts.append(len(g["verts"]))
+                    check(g["faces"].shape[1] == 3
+                          and g["warp_field"].shape == g["verts"].shape
+                          and g["verts_ggm"].shape == (len(g["verts"]),)
+                          and all(np.isfinite(g[k]).all() for k in (
+                              "verts", "normals", "warp_field",
+                              "verts_ggm", "volume_value")),
+                          "mesh or warp output malformed")
+        log(f"serve: {n_clients * n_requests} requests, "
+            f"{n_clients * n_requests * per_request} garments in "
+            f"{n_batches} device batches, ok=1 for {n_ok}, verts per "
+            f"ok garment {n_verts[:4]}...; launches {launches}; host MC "
+            f"overlapped the next encode in {overlapped} batches")
+        check(n_ok >= 1, "no garment came back with a mesh")
+        check(n_batches >= 1 and launches == {
+            "fps": 2 * n_batches, "dense_decode": n_batches,
+            "ggm": n_batches, "sa": 2 * n_batches},
+              f"serve launches {launches} over {n_batches} batches")
+        check(overlapped >= 1, "host MC never overlapped the next encode")
+        lat = np.percentile(latencies, [50, 90])
+        gps = n_clients * n_requests * per_request / wall
+        log(f"serve on {torch.cuda.get_device_name(0)}: {gps:.3f} "
+            f"garments/s, request latency p50 {lat[0]:.1f} ms, p90 "
+            f"{lat[1]:.1f} ms (B={B}, N={N}, {VOL}^3, batch window 20 ms); "
+            f"/healthz {health}")
+
+        # one request alone against the engine on the same padded batch
+        got = predict_remote(url, *lone)
+        eng = service.engine
+        enc = eng.encode(*normalized_batch(lone))
+        eng.prefetch(enc, extra_keys=("pred_nocs",))
+        meshes = eng.extract_meshes(enc)
+        warps = eng.warp_batch(enc, meshes)
+        shipped = read_page_counts(eng.host_outputs(enc)["active_pages"][0]
+                                   .numpy())
+        nocs = eng.host_outputs(enc)["pred_nocs"].numpy()
+        diff = 0.0
+        for i, g in enumerate(got):
+            m, w = meshes[i], warps[i]
+            check(int(g["ok"]) == int(m is not None and w is not None),
+                  "served ok flag differs from the engine's")
+            diff = max(diff, float(np.abs(g["pred_nocs"] - nocs[i]).max()))
+            if int(g["ok"]):
+                check(np.array_equal(g["faces"], m[1]),
+                      "served faces differ from the engine's")
+                for a, b_ in ((g["verts"], m[0]), (g["volume_value"], m[2]),
+                              (g["warp_field"], w["warp_field"]),
+                              (g["verts_ggm"], w["verts_ggm"])):
+                    diff = max(diff, float(np.abs(a - b_).max()))
+        log(f"serve vs a direct encode -> extract_meshes -> warp_batch: ok "
+            f"{[int(g['ok']) for g in got]}, max abs diff {diff:.3e}; "
+            f"shipped bricks {shipped.tolist()}")
+        check(diff <= 1e-5, "served results differ from a direct run")
+        return {"garments_per_s": gps, "p50_ms": lat[0], "p90_ms": lat[1]}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+
+
+def small_cfg():
+    """A tiny pipeline configuration for checks of the card against the
+    CPU."""
+    from garmentnets_tpu_torch.models.pipeline import PipelineConfig
+    from garmentnets_tpu_torch.models.pointnet2_nocs import (
+        PointNet2NOCSConfig)
+    return PipelineConfig(
+        pointnet2=PointNet2NOCSConfig(nocs_bins=8, sa1_r=0.2, sa2_r=0.4),
+        volume_agg_nn_channels=(137, 64, 32), grid_shape=(16, 16, 16),
+        unet_in_channels=32, unet_out_channels=32, unet_f_maps=8,
+        unet_num_levels=2, unet_num_groups=4,
+        volume_decoder_channels=(32, 16, 1),
+        surface_decoder_channels=(32, 16, 3))
+
+
 def phase_small_reference(dev) -> None:
     """A tiny engine on the card against the same engine on the CPU. The
     seed gives a WNF that varies and crosses the iso level, so the WNF and
@@ -334,17 +647,8 @@ def phase_small_reference(dev) -> None:
     import torch
     from garmentnets_tpu_torch.core.random_weights import seeded_init_
     from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
-    from garmentnets_tpu_torch.models.pipeline import (
-        ConvImplicitWNFPipeline, PipelineConfig)
-    from garmentnets_tpu_torch.models.pointnet2_nocs import (
-        PointNet2NOCSConfig)
-    cfg = PipelineConfig(
-        pointnet2=PointNet2NOCSConfig(nocs_bins=8, sa1_r=0.2, sa2_r=0.4),
-        volume_agg_nn_channels=(137, 64, 32), grid_shape=(16, 16, 16),
-        unet_in_channels=32, unet_out_channels=32, unet_f_maps=8,
-        unet_num_levels=2, unet_num_groups=4,
-        volume_decoder_channels=(32, 16, 1),
-        surface_decoder_channels=(32, 16, 3))
+    from garmentnets_tpu_torch.models.pipeline import ConvImplicitWNFPipeline
+    cfg = small_cfg()
     model = ConvImplicitWNFPipeline(cfg)
     seeded_init_(model, 4)
     rng = np.random.RandomState(4)
@@ -398,6 +702,7 @@ def main() -> int:
 
     rows = phase_kernels(dev)
     launches = phase_main_path(dev)
+    phase_serve(dev)
     phase_small_reference(dev)
 
     for k, row in rows.items():

@@ -17,6 +17,19 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def to_device(t, device, dtype=None) -> torch.Tensor:
+    """Copy host data to `device` without blocking the host. A plain copy
+    from pageable memory to a card synchronizes the stream, so it would
+    wait for every kernel queued before it; a pinned staging copy does
+    not (PyTorch's pinned-memory cache keeps the buffer until the copy has
+    run). Data already on a card is moved with a plain `.to`."""
+    device = torch.device(device)
+    t = torch.as_tensor(t, dtype=dtype)
+    if t.device.type != "cpu" or device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run float32 matmuls and cuDNN convolutions in full f32 (TF32 off)

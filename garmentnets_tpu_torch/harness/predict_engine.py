@@ -13,6 +13,14 @@ Per batch:
 Queries and results stay float32 (the JAX engine's f16 wire format was a
 measure for its device link). Entry points run on the card unless the
 caller passes device="cpu".
+
+Nothing on the host waits for the whole stream: inputs go up through
+pinned staging copies, `prefetch` copies a batch's brick pages and NOCS
+outputs into pinned host buffers and records an event, `extract_meshes`
+waits on that event only, and `warp_dispatch`/`warp_collect` do the same
+for the warp result. So a caller can queue encode(i+1) before running
+batch i's host marching cubes, and the two overlap. On the CPU the copies
+and events are skipped on the same code path.
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from garmentnets_tpu_torch.core.device import full_f32, resolve_device
+from garmentnets_tpu_torch.core.device import (
+    full_f32, resolve_device, to_device)
 from garmentnets_tpu_torch.models.pipeline import (
     ConvImplicitWNFPipeline, PipelineConfig)
 from garmentnets_tpu_torch.ops.dense_decode import dense_decode, eval_layers
@@ -34,6 +43,25 @@ from garmentnets_tpu_torch.ops.isosurface import (
     split_brick_payload, unpack_brick_pages)
 from garmentnets_tpu_torch.ops.marching_cubes import (
     marching_cubes, marching_cubes_bricks)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """Queue a copy of a card tensor into a pinned host buffer (a CPU
+    tensor is returned as it is)."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t, non_blocking=True)
+
+
+def _record_event(device: torch.device):
+    """An event behind the work queued so far on a card; None on the
+    CPU."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
 
 
 class PredictEngine:
@@ -54,7 +82,6 @@ class PredictEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = ConvImplicitWNFPipeline(cfg)
-        self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
         self.volume_size = volume_size
         self.gradient_sigma = gradient_sigma
@@ -69,11 +96,17 @@ class PredictEngine:
         self.brick_page = min(1024, brick_cap)
         self.brick_cap = -(-brick_cap // self.brick_page) * self.brick_page
         self.return_volume = return_volume
-        self._vd_layers = eval_layers(self.model.volume_decoder.mlp)
+        self.load_state_dict(state_dict)
         if mc_threads is None:
             mc_threads = min(4, os.cpu_count() or 1)
         self._pool = (ThreadPoolExecutor(mc_threads, thread_name_prefix="mc")
                       if mc_threads > 1 else None)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load new weights (the same architecture) and re-fold the volume
+        decoder's layers, which the dense decode reads."""
+        self.model.load_state_dict(state_dict)
+        self._vd_layers = eval_layers(self.model.volume_decoder.mlp)
 
     def close(self) -> None:
         """Stop the marching-cubes worker threads."""
@@ -86,8 +119,8 @@ class PredictEngine:
     @full_f32()
     def encode(self, x, pos) -> dict:
         """x, pos: [B, N, 3] (numpy or tensors) -> dict of device tensors."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
+        x = to_device(x, self.device, torch.float32)
+        pos = to_device(pos, self.device, torch.float32)
         # the encode/* ranges name the stages in a torch.profiler trace
         # (tools/profile_encode.py); without a profiler they cost a few us
         with record_function("encode/stage1_pointnet2"):
@@ -124,12 +157,42 @@ class PredictEngine:
             out["wnf_volume"] = wnf
         return out
 
-    def extract_meshes(self, enc: dict) -> list:
-        """Fetch the needed brick pages once for the batch and run the host
-        C++ marching cubes per garment. Returns per garment (verts, faces,
-        values, normals), or None where no surface was found."""
+    def prefetch(self, enc: dict, extra_keys=()) -> None:
+        """Start copying every brick page of `enc`, and the tensors named
+        in `extra_keys`, into pinned host buffers, and record an event
+        behind the copies. All pages are copied (~4.5 MB at B=8, 128^3), so
+        no count has to come back first. The buffers hold stale bytes until
+        the event has completed: read them only through `host_outputs`."""
         pages = enc["active_pages"]
-        p0 = pages[0].cpu().numpy()
+        host = {"active_pages": [_to_host(p) for p in pages]}
+        host.update({k: _to_host(enc[k]) for k in extra_keys})
+        # the source page list is kept to tell a stale prefetch apart
+        enc["_prefetch"] = (pages, host, _record_event(self.device))
+
+    def encode_done(self, enc: dict) -> bool:
+        """Whether the prefetched copies of `enc` (and so its encode) have
+        completed; True on the CPU."""
+        event = enc["_prefetch"][2]
+        return event is None or event.query()
+
+    def host_outputs(self, enc: dict) -> dict:
+        """The prefetched host tensors of `enc`, after waiting on its event
+        only (prefetching first if it was not, or if its pages were
+        replaced since)."""
+        pf = enc.get("_prefetch")
+        if pf is None or pf[0] is not enc["active_pages"]:
+            self.prefetch(enc)
+            pf = enc["_prefetch"]
+        if pf[2] is not None:
+            pf[2].synchronize()
+        return pf[1]
+
+    def extract_meshes(self, enc: dict) -> list:
+        """Read the batch's prefetched brick pages and run the host C++
+        marching cubes per garment. Returns per garment (verts, faces,
+        values, normals), or None where no surface was found."""
+        pages = self.host_outputs(enc)["active_pages"]
+        p0 = pages[0].numpy()
         counts = read_page_counts(p0)
         B = len(counts)
         kmax = int(counts.max()) if B else 0
@@ -151,7 +214,7 @@ class PredictEngine:
                     pass
             return results
         n_pages = max(1, -(-kmax // self.brick_page))
-        srcs = [p0] + [p.cpu().numpy() for p in pages[1:n_pages]]
+        srcs = [p0] + [p.numpy() for p in pages[1:n_pages]]
         brick_idx, brick_vals = unpack_brick_pages(srcs, header=True)
         brick_vals, _ = split_brick_payload(brick_vals)
 
@@ -185,29 +248,34 @@ class PredictEngine:
     @full_f32()
     def warp_dispatch(self, enc: dict, meshes: list):
         """Queue the surface decoder + ggm gather over all garments' mesh
-        vertices; returns a handle for warp_collect."""
+        vertices and the copy of the result into a pinned host buffer;
+        returns a handle for warp_collect."""
         sizes = [0 if m is None else len(m[0]) for m in meshes]
         vmax = max(sizes) if sizes else 0
         if vmax == 0:
-            return (None, sizes)
+            return (None, None, sizes)
         q = np.zeros((len(meshes), vmax, 3), np.float32)
         for b, m in enumerate(meshes):
             if m is not None:
                 q[b, :len(m[0])] = m[0]
-        q = torch.from_numpy(q).to(self.device)
+        q = to_device(q, self.device)
         warp = self.model.surface_decoder_forward(enc["feature_volume"], q)
         ggm = enc["wnf_ggm"]
         B, S = ggm.shape[0], self.volume_size
         nn_idx = torch.clamp((q * (S - 1)).to(torch.int64), 0, S - 1)
         flat = (nn_idx[..., 0] * S + nn_idx[..., 1]) * S + nn_idx[..., 2]
         ggm_at = torch.gather(ggm.reshape(B, -1), 1, flat)
-        return (torch.cat([warp, ggm_at[..., None]], dim=-1), sizes)
+        out = _to_host(torch.cat([warp, ggm_at[..., None]], dim=-1))
+        return (out, _record_event(self.device), sizes)
 
     def warp_collect(self, handle) -> list:
-        out, sizes = handle
+        """Wait on the handle's event only and split the host result."""
+        out, event, sizes = handle
         if out is None:
             return [None] * len(sizes)
-        out = out.cpu().numpy()
+        if event is not None:
+            event.synchronize()
+        out = out.numpy()
         return [None if n == 0 else {"warp_field": out[b, :n, :3],
                                      "verts_ggm": out[b, :n, 3]}
                 for b, n in enumerate(sizes)]

@@ -13,8 +13,10 @@ import torch
 import torch.nn as nn
 
 from garmentnets_tpu_torch.models.mlp import PointMLP
+from garmentnets_tpu_torch.ops.dense_decode import eval_layers
 from garmentnets_tpu_torch.ops.pointcloud import (
     ball_query, furthest_point_sampling, gather_rows, knn_interpolate)
+from garmentnets_tpu_torch.ops.set_abstraction import sa_fused
 
 
 class _PointConv(nn.Module):
@@ -26,7 +28,10 @@ class _PointConv(nn.Module):
 
 
 class SAModule(nn.Module):
-    """FPS -> ball query -> MLP over concat(x_j, p_j - p_i) -> masked max."""
+    """FPS -> ball query -> MLP over concat(x_j, p_j - p_i) -> masked max.
+
+    In eval mode the last three steps are ops/set_abstraction.sa_fused (the
+    fused CUDA kernel for a CUDA tensor); in training mode, stock ops."""
 
     def __init__(self, ratio: float, radius: float,
                  mlp_channels: Sequence[int], max_neighbors: int = 64,
@@ -44,6 +49,12 @@ class SAModule(nn.Module):
         centers = gather_rows(pos, idx)                            # [B,M,3]
         nbr_idx, nbr_mask = ball_query(pos, centers, self.radius,
                                        k=self.max_neighbors)       # [B,M,K]
+        if not self.training:
+            # folded at each call, so reloaded weights take effect at once
+            layers = eval_layers(self.conv.local_nn)
+            return sa_fused(x, pos, centers, nbr_idx, nbr_mask,
+                            layers), centers
+        # training mode: stock ops (the kernel has no backward)
         # one gather of the combined [x | pos] rows
         C = x.shape[-1]
         nbr = gather_rows(torch.cat([x, pos], dim=-1), nbr_idx)    # [B,M,K,C+3]

@@ -9,12 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from garmentnets_tpu_torch.core.device import to_device
+
 
 def grid_sample_trilinear(volume: torch.Tensor,
                           query: torch.Tensor) -> torch.Tensor:
     """volume [B, D, H, W, C]; query [B, M, 3] in [0, 1] -> [B, M, C]."""
     B, D, H, W, C = volume.shape
-    dims_i = torch.tensor([D - 1, H - 1, W - 1], device=volume.device)
+    dims_i = to_device([D - 1, H - 1, W - 1], volume.device)
     dims = dims_i.to(volume.dtype)
     q = query.to(volume.dtype) * dims
     q = torch.minimum(torch.clamp(q, min=0.0), dims)

@@ -11,6 +11,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from garmentnets_tpu_torch.core.device import to_device
+
 
 @dataclasses.dataclass(frozen=True)
 class VirtualGrid:
@@ -19,7 +21,7 @@ class VirtualGrid:
     grid_shape: Tuple[int, int, int] = (32, 32, 32)
 
     def _f32(self, values, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor(values, dtype=torch.float32, device=like.device)
+        return to_device(values, like.device, torch.float32)
 
     def get_points_grid_idxs(self, points: torch.Tensor) -> torch.Tensor:
         """Continuous points (..., 3) -> clamped int64 voxel indices.
@@ -30,8 +32,7 @@ class VirtualGrid:
         uc = self._f32(self.upper_corner, points)
         scales = (self._f32(self.grid_shape, points) - 1) / (uc - lc)
         idxs = ((points - lc) * scales).to(torch.int64)
-        hi = torch.tensor(self.grid_shape, dtype=torch.int64,
-                          device=points.device) - 1
+        hi = to_device(self.grid_shape, points.device, torch.int64) - 1
         return torch.minimum(torch.clamp(idxs, min=0), hi)
 
     def idxs_to_points(self, idxs: torch.Tensor) -> torch.Tensor:
@@ -45,8 +46,7 @@ class VirtualGrid:
     def flatten_idxs(self, idxs: torch.Tensor) -> torch.Tensor:
         """Pack (..., 3) integer coords into a flat row-major index."""
         g = self.grid_shape
-        stride = torch.tensor((g[1] * g[2], g[2], 1), dtype=idxs.dtype,
-                              device=idxs.device)
+        stride = to_device((g[1] * g[2], g[2], 1), idxs.device, idxs.dtype)
         return (idxs * stride).sum(dim=-1)
 
     @property

@@ -15,6 +15,7 @@ from garmentnets_tpu_torch.ops.dense_decode import (
     coarse_first_layer, dense_decode_plain)
 from garmentnets_tpu_torch.ops.gaussian import ggm_plain, ggm_taps
 from garmentnets_tpu_torch.ops.pointcloud import furthest_point_sampling_plain
+from garmentnets_tpu_torch.ops.set_abstraction import sa_fused_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +84,115 @@ def test_decode_kernel_refuses_vector_head(dev):
 def test_engine_card_matches_cpu(dev):
     """A tiny engine on the card against the same weights on the CPU."""
     chip_smoke.phase_small_reference(dev)
+
+
+@pytest.mark.parametrize("n_pts,m,cin,widths,radius", [
+    (6000, 3000, 3, (6, 64, 64, 128), 0.05),          # SA1
+    (3000, 750, 128, (131, 128, 128, 256), 0.1),      # SA2
+])
+def test_sa_kernel_matches_plain_full_shapes(dev, n_pts, m, cin, widths,
+                                             radius):
+    """B=8, K=64, indices from the port's FPS and ball query; tolerance
+    1e-4 (f32 sums in another order than cuBLAS's)."""
+    from garmentnets_tpu_torch.kernels.sa import sa_cuda
+    args = chip_smoke.sa_inputs(torch.Generator().manual_seed(n_pts), 8,
+                                n_pts, m, cin, widths, radius, dev)
+    want = sa_fused_plain(*args)
+    assert float(want.std()) > 0.1           # the output is not flat
+    before = _build.LAUNCHES["sa"]
+    out = sa_cuda(*args)
+    assert _build.LAUNCHES["sa"] == before + 1
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+
+
+def _random_sa_case(seed, B, N, M, K, cin, widths, keep, dev):
+    """Random indices and a random mask (`keep` valid share)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(B, N, cin, generator=g) - 0.5
+    pos = torch.rand(B, N, 3, generator=g)
+    idx = torch.randint(0, N, (B, M, K), generator=g)
+    mask = torch.rand(B, M, K, generator=g) < keep
+    layers = chip_smoke.sa_layers(g, widths, dev)
+    return [t.to(dev) for t in (x, pos, pos[:, :M].contiguous(), idx,
+                                mask)] + [layers]
+
+
+@pytest.mark.parametrize("M,K,cin,widths,keep", [
+    (97, 24, 5, (8, 40, 32), 0.6),        # odd M, Cin 5, padded K and width
+    (50, 64, 3, (6, 16, 8), 0.03),        # heavily masked: empty rows
+    (33, 8, 3, (6, 256), 1.0),            # one layer at the widest width
+])
+def test_sa_kernel_random_cases(dev, M, K, cin, widths, keep):
+    from garmentnets_tpu_torch.kernels.sa import sa_cuda
+    args = _random_sa_case(M, 2, 300, M, K, cin, widths, keep, dev)
+    want = sa_fused_plain(*args)
+    if keep < 0.1:
+        assert bool(torch.isinf(want).any())   # some rows have no slot
+    torch.testing.assert_close(sa_cuda(*args), want, rtol=0, atol=1e-4)
+
+
+def test_sa_kernel_single_valid_slot(dev):
+    """Each row keeps exactly one valid slot, at a random position."""
+    from garmentnets_tpu_torch.kernels.sa import sa_cuda
+    args = _random_sa_case(5, 2, 400, 70, 64, 3, (6, 64, 128), 1.0, dev)
+    g = torch.Generator().manual_seed(6)
+    slot = torch.randint(0, 64, (2, 70, 1), generator=g).to(dev)
+    mask = torch.zeros(2, 70, 64, dtype=torch.bool, device=dev)
+    args[4] = mask.scatter_(2, slot, True)
+    want = sa_fused_plain(*args)
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(sa_cuda(*args), want, rtol=0, atol=1e-4)
+
+
+
+def test_prefetch_extract_meshes_card_matches_cpu(dev):
+    """Pages and NOCS outputs read through prefetch (pinned copies and an
+    event) on the card equal the same calls on the CPU."""
+    import numpy as np
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
+    from garmentnets_tpu_torch.models.pipeline import ConvImplicitWNFPipeline
+    from garmentnets_tpu_torch.ops.isosurface import (
+        extract_active_bricks, pack_brick_pages)
+    model = ConvImplicitWNFPipeline(chip_smoke.small_cfg())
+    seeded_init_(model, 4)
+    rng = np.random.RandomState(4)
+    x = rng.rand(2, 256, 3).astype(np.float32)
+    pos = (rng.rand(2, 256, 3) - 0.5).astype(np.float32)
+    ax = torch.linspace(0, 1, 32)
+    g = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1)
+    wnf = 1.0 - (g - 0.5).norm(dim=-1) / 0.6
+    wnf = torch.stack([wnf, wnf.flip(0)]).contiguous()
+    out = {}
+    for d in (dev, "cpu"):
+        eng = PredictEngine(chip_smoke.small_cfg(), model.state_dict(),
+                            volume_size=32, mc_threads=1, device=d)
+        enc = eng.encode(x, pos)
+        eng.prefetch(enc, extra_keys=("pred_nocs",))
+        nocs = eng.host_outputs(enc)["pred_nocs"].numpy().copy()
+        base, vals, counts = extract_active_bricks(wnf.to(d), 0.5,
+                                                   eng.brick_cap)
+        enc = {"active_pages": pack_brick_pages(base, vals, eng.brick_page,
+                                                counts=counts)}
+        eng.prefetch(enc)
+        assert eng.encode_done(enc) or d != "cpu"
+        out[str(d)] = (nocs, eng.extract_meshes(enc))
+        eng.close()
+    (n_card, m_card), (n_cpu, m_cpu) = out[str(dev)], out["cpu"]
+    np.testing.assert_array_equal(n_card, n_cpu)
+    for a, b in zip(m_card, m_cpu):
+        assert a is not None and len(a[0]) > 0
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+
+
+def test_to_device_from_host_and_card(dev):
+    """Host data goes up through a pinned copy; a tensor already on a card
+    (device "cuda:0" against "cuda") is passed through."""
+    import numpy as np
+    from garmentnets_tpu_torch.core.device import to_device
+    a = np.arange(12, dtype=np.float64).reshape(3, 4)
+    t = to_device(a, "cuda", torch.float32)
+    assert t.is_cuda and t.dtype == torch.float32
+    assert torch.equal(t.cpu(), torch.from_numpy(a).float())
+    assert torch.equal(to_device(t, "cuda"), t)

@@ -1,6 +1,8 @@
 """Import isolation of the port: every module of garmentnets_tpu_torch and
 chip_smoke.py imports with jax and garmentnets_tpu blocked, builds nothing
-at import time, and chip_smoke.py exits non-zero without a CUDA device."""
+at import time, and chip_smoke.py exits non-zero without a CUDA device.
+The server and its config loader import without pyyaml, which only the
+CLI's config loading needs."""
 import os
 import pathlib
 import subprocess
@@ -25,8 +27,17 @@ leaked = sorted(k for k, v in sys.modules.items()
 assert not leaked, leaked
 from garmentnets_tpu_torch.kernels import _build
 assert not _build._LIBS, "a library was built at import time"
+assert set(EXPECTED) <= set(mods), sorted(set(EXPECTED) - set(mods))
 print(len(mods))
 """
+
+# modules of the predict and serve slices that must be among them
+EXPECTED = [
+    "garmentnets_tpu_torch." + m for m in (
+        "harness.predict_engine", "harness.serve", "core.builders",
+        "core.checkpoint", "core.config", "core.device", "core.weights",
+        "kernels.sa", "kernels.fps", "kernels.dense_decode", "kernels.ggm",
+        "ops.set_abstraction", "models.pointnet2")]
 
 
 def _env():
@@ -36,11 +47,11 @@ def _env():
 
 
 def test_port_imports_without_jax():
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
-                         env=_env(), capture_output=True, text=True,
-                         timeout=120)
+    out = subprocess.run(
+        [sys.executable, "-c", f"EXPECTED = {EXPECTED!r}\n" + _BLOCKED_IMPORT],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    assert int(out.stdout.strip().splitlines()[-1]) >= 26
 
 
 def test_port_sources_name_no_jax_import():
@@ -63,5 +74,40 @@ def test_chip_smoke_fails_without_cuda():
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                          cwd=ROOT, env=_env(), capture_output=True,
                          text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+_NO_YAML = r"""
+import sys
+sys.modules["yaml"] = None
+from garmentnets_tpu_torch.harness import serve
+from garmentnets_tpu_torch.core import config
+try:
+    config.load_config("serve_default")
+except ImportError as e:
+    assert "pyyaml" in str(e), e
+    print("named")
+"""
+
+
+def test_serve_imports_without_yaml_and_cli_names_it():
+    out = subprocess.run([sys.executable, "-c", _NO_YAML], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "named"
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the
+    repository, the script exits non-zero and prints no result."""
+    import shutil
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout

@@ -1,0 +1,385 @@
+"""The port's inference server (harness/serve.py) on the CPU.
+
+The same requests go to the JAX PredictService (on the JAX package's
+msgpack checkpoint, HIGHEST precision) and to the port's (on that
+checkpoint exported by tools/export_checkpoint.py): the ok flags and NOCS
+bins must be identical, and meshes and warp values agree within the
+tolerances of test_torch_engine.py. The port's service also gets the HTTP
+round trip, concurrent clients, resampling, failure isolation, bad
+requests, /healthz and a hot reload whose new volume-decoder weights must
+reach the decoded WNF.
+
+The tiny pipeline's volume-decoder head is set to relu(z + b) with b
+chosen so that about 10% of the voxels of the first request lie above the
+iso level, so that marching cubes and the warp have surfaces to work on.
+"""
+import copy
+import dataclasses
+import json
+import pathlib
+import sys
+import threading
+from urllib.error import HTTPError
+from urllib.request import Request, urlopen
+
+import numpy as np
+import pytest
+import jax
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+import torch_port_util as pu  # noqa: E402
+
+from garmentnets_tpu.core.builders import pipeline_hparams  # noqa: E402
+from garmentnets_tpu.core.checkpoint import save_checkpoint  # noqa: E402
+from garmentnets_tpu.harness import serve as jax_serve  # noqa: E402
+from garmentnets_tpu_torch.core.checkpoint import (  # noqa: E402
+    load_pipeline_checkpoint, save_pipeline_checkpoint)
+from garmentnets_tpu_torch.core.weights import state_dict_from_jax  # noqa: E402
+from garmentnets_tpu_torch.harness import serve  # noqa: E402
+from garmentnets_tpu_torch.harness.predict_engine import PredictEngine  # noqa: E402
+from tools import export_checkpoint  # noqa: E402
+
+BATCH, POINTS = 4, pu.N
+
+
+def _requests():
+    rng = np.random.RandomState(3)
+
+    def req(b, n):
+        return (rng.rand(b, n, 3).astype(np.float32),
+                (rng.rand(b, n, 3) - 0.5).astype(np.float32))
+    # exact size, oversized (subsampled), undersized (repeat-padded)
+    return [req(2, POINTS), req(3, 400), req(1, 200)]
+
+
+def _padded(x, pos):
+    """The service's zero-padded batch of one request alone."""
+    bx = np.zeros((BATCH, POINTS, 3), np.float32)
+    bp = np.zeros((BATCH, POINTS, 3), np.float32)
+    for b in range(len(x)):
+        bx[b], bp[b] = serve._normalize_cloud(x[b], pos[b], POINTS, seed=b)
+    return bx, bp
+
+
+def _live_head(variables, x, pos, share=0.1, shift=0.0):
+    """The volume decoder head as relu(z + b) (identity BatchNorm), with b
+    putting `share` of the voxels of (x, pos) above 0.5 (+ shift)."""
+    v = copy.deepcopy(variables)
+    head = v["params"]["volume_decoder"]["mlp"]
+    head["bn_1"]["scale"][:] = 1.0
+    head["bn_1"]["bias"][:] = 0.0
+    v["batch_stats"]["volume_decoder"]["mlp"]["bn_1"]["mean"][:] = 0.0
+    v["batch_stats"]["volume_decoder"]["mlp"]["bn_1"]["var"][:] = 1 - 1e-5
+    head["dense_1"]["bias"][:] = 100.0
+    probe = PredictEngine(pu.torch_cfg(), state_dict_from_jax(v),
+                          volume_size=pu.VOL, return_volume=True,
+                          mc_threads=1, device="cpu")
+    z = probe.encode(x, pos)["wnf_volume"].numpy() - 100.0
+    head["dense_1"]["bias"][:] = 0.5 + shift - np.quantile(z, 1 - share)
+    return v
+
+
+def _write(d, name, variables):
+    msgpack = d / f"{name}.msgpack"
+    save_checkpoint(msgpack, {"params": variables["params"],
+                              "batch_stats": variables["batch_stats"],
+                              "step": 0},
+                    hparams=pipeline_hparams(pu.jax_cfg()))
+    ckpt = d / f"{name}.ckpt"
+    export_checkpoint.main(str(msgpack), str(ckpt))
+    return msgpack, ckpt
+
+
+@pytest.fixture(scope="module")
+def ckpts(tmp_path_factory):
+    d = tmp_path_factory.mktemp("serve")
+    req = _requests()[0]
+    variables = _live_head(pu.jax_variables(), *_padded(*req))
+    moved = _live_head(pu.jax_variables(), *_padded(*req), shift=0.05)
+    return {"main": _write(d, "main", variables),
+            "moved": _write(d, "moved", moved)}
+
+
+def _service(ckpt, **kw):
+    return serve.PredictService(ckpt, batch_size=BATCH, num_points=POINTS,
+                                volume_size=pu.VOL, batch_window_ms=30.0,
+                                device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def service(ckpts):
+    svc = _service(ckpts["main"][1])
+    yield svc
+    svc.close()
+
+
+@pytest.fixture(scope="module")
+def both_results(ckpts, service):
+    jsvc = jax_serve.PredictService(
+        ckpts["main"][0], batch_size=BATCH, num_points=POINTS,
+        volume_size=pu.VOL, batch_window_ms=30.0,
+        engine_kwargs={"precision": jax.lax.Precision.HIGHEST,
+                       "warp_bucket": 64})
+    try:
+        out = [(jsvc.submit(x, pos), service.submit(x, pos))
+               for x, pos in _requests()]
+    finally:
+        jsvc.close()
+    # the port's warp at the JAX service's vertices rounded to f16, the
+    # queries the JAX engine evaluates (its wire format), on a separate
+    # engine
+    eng = PredictEngine(service.cfg, service.engine.model.state_dict(),
+                        volume_size=pu.VOL, mc_threads=1, device="cpu")
+    warps16 = []
+    for (x, pos), (jres, _) in zip(_requests(), out):
+        enc = eng.encode(*_padded(x, pos))
+        warps16.append(eng.warp_batch(enc, [
+            (j["verts"].astype(np.float16).astype(np.float32), None)
+            if int(j["ok"]) else None for j in jres]))
+    return [(j, t, w) for (j, t), w in zip(out, warps16)]
+
+
+def test_results_match_jax_service(both_results):
+    """Meshes, normals and volume values as served; the warp field and the
+    ggm at the vertices through the port's warp at the f16-rounded JAX
+    vertices, the queries the JAX engine evaluates (the served port warp
+    equals the port engine's at its own f32 vertices:
+    test_submit_matches_engine_on_padded_batch)."""
+    n_ok = 0
+    for jres, tres, warps16 in both_results:
+        assert len(jres) == len(tres)
+        for j, t, w in zip(jres, tres, warps16):
+            assert int(t["ok"]) == int(j["ok"])
+            np.testing.assert_array_equal(t["pred_nocs"], j["pred_nocs"])
+            np.testing.assert_allclose(t["pred_nocs_confidence"],
+                                       j["pred_nocs_confidence"],
+                                       rtol=2e-3, atol=1e-3)
+            if not int(t["ok"]):
+                continue
+            n_ok += 1
+            np.testing.assert_array_equal(t["faces"], j["faces"])
+            np.testing.assert_allclose(t["verts"], j["verts"], rtol=2e-3,
+                                       atol=1e-3)
+            # normals and values come from the int8-quantized bricks: where
+            # the two WNFs (within ~1e-6) straddle a rounding boundary, a
+            # brick value moves by one level (1/254), which moves nearby
+            # normals by up to ~1e-2; elsewhere they agree within 1e-3
+            for k in ("normals", "volume_value"):
+                err = np.abs(t[k] - j[k])
+                assert err.max() <= 1e-2, k
+                assert (err <= 1e-3).mean() >= 0.99, k
+            for k in ("warp_field", "verts_ggm"):
+                np.testing.assert_allclose(w[k], j[k], rtol=2e-3, atol=1e-3,
+                                           err_msg=k)
+    assert n_ok >= 4          # most garments have a surface to compare
+
+
+def test_normalize_cloud_matches_jax():
+    rng = np.random.RandomState(0)
+    for n in (100, 256, 700):
+        x = rng.rand(n, 3).astype(np.float32)
+        p = rng.rand(n, 3).astype(np.float32)
+        for a, b in zip(serve._normalize_cloud(x, p, 256, seed=2),
+                        jax_serve._normalize_cloud(x, p, 256, seed=2)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_submit_matches_engine_on_padded_batch(service):
+    """A request alone equals encode -> extract_meshes -> warp_batch on the
+    same normalized, zero-padded batch."""
+    x, pos = _requests()[1]
+    got = service.submit(x, pos)
+    eng = PredictEngine(service.cfg, service.engine.model.state_dict(),
+                        volume_size=pu.VOL, mc_threads=1, device="cpu")
+    enc = eng.encode(*_padded(x, pos))
+    meshes = eng.extract_meshes(enc)
+    warps = eng.warp_batch(enc, meshes)
+    for i, g in enumerate(got):
+        np.testing.assert_array_equal(g["pred_nocs"],
+                                      enc["pred_nocs"][i].numpy())
+        assert int(g["ok"]) == int(meshes[i] is not None)
+        if int(g["ok"]):
+            np.testing.assert_array_equal(g["verts"], meshes[i][0])
+            np.testing.assert_array_equal(g["faces"], meshes[i][1])
+            np.testing.assert_array_equal(g["warp_field"],
+                                          warps[i]["warp_field"])
+
+
+def test_http_roundtrip_and_healthz(service):
+    httpd = serve.make_http_server(service, host="127.0.0.1", port=0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urlopen(url + "/healthz") as resp:
+            health = json.loads(resp.read())
+        assert health["status"] == "ok" and health["batch_size"] == BATCH
+        assert health["num_points"] == POINTS
+        assert health["device"] == "cpu"
+        assert health["requests"] >= 0 and "mc_overlapped" in health
+        x, pos = _requests()[0]
+        remote = serve.predict_remote(url, x, pos)
+        direct = service.submit(x, pos)
+        assert len(remote) == len(direct) == 2
+        for r, d in zip(remote, direct):
+            assert sorted(r) == sorted(d)
+            for k in d:
+                np.testing.assert_array_equal(r[k], d[k], err_msg=k)
+        # a malformed body and wrong shapes come back as 400 with the error
+        for body in (b"not an npz", serve.encode_npz(
+                {"x": np.zeros((1, 5, 2), np.float32),
+                 "pos": np.zeros((1, 5, 2), np.float32)})):
+            with pytest.raises(HTTPError) as e:
+                urlopen(Request(url + "/predict", data=body))
+            assert e.value.code == 400
+            assert "error" in json.loads(e.value.read())
+        with pytest.raises(HTTPError) as e:
+            urlopen(url + "/nothing")
+        assert e.value.code == 404
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_predict_remote_parses_indices_past_ten(service, monkeypatch):
+    """Keys like verts_11 go to item 11, not item 1."""
+    flat = {f"ok_{i}": np.int32(i) for i in range(12)}
+    flat["count"] = np.int32(12)
+
+    class Resp:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def read(self):
+            return serve.encode_npz(flat)
+
+    monkeypatch.setattr("urllib.request.urlopen", lambda req: Resp())
+    out = serve.predict_remote("http://unused", np.zeros((1, 2, 3)),
+                               np.zeros((1, 2, 3)))
+    assert [int(o["ok"]) for o in out] == list(range(12))
+
+
+def test_concurrent_clients_share_batches(service):
+    before = service.stats["batches"]
+    x, pos = _requests()[1]
+    results, errs = [None] * 3, []
+
+    def client(i):
+        try:
+            results[i] = service.submit(x[i:i + 1], pos[i:i + 1])[0]
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errs and not any(t.is_alive() for t in threads)
+    assert all(r is not None and r["pred_nocs"].shape == (POINTS, 3)
+               for r in results)
+    assert service.stats["batches"] - before < 3
+
+
+def test_resampling_sizes(service):
+    for n in (120, 900):
+        rng = np.random.RandomState(n)
+        (r,) = service.submit(rng.rand(1, n, 3), rng.rand(1, n, 3) - 0.5)
+        assert r["pred_nocs"].shape == (POINTS, 3)
+        assert r["pred_nocs_confidence"].shape == (POINTS, 3)
+
+
+def test_batch_failure_isolated(service, monkeypatch):
+    def boom(x, pos):
+        raise RuntimeError("injected device failure")
+
+    monkeypatch.setattr(service.engine, "encode", boom)
+    x, pos = _requests()[2]
+    (r,) = service.submit(x, pos, timeout=60)
+    assert int(r["ok"]) == 0
+    assert b"injected device failure" in bytes(r["error"])
+    monkeypatch.undo()
+    (r,) = service.submit(x, pos, timeout=60)
+    assert "error" not in r
+
+
+def test_submit_rejects_bad_shapes(service):
+    with pytest.raises(ValueError, match=r"\[B, N, 3\]"):
+        service.submit(np.zeros((2, 10, 3)), np.zeros((2, 11, 3)))
+
+
+def test_hot_reload_reaches_the_decoded_wnf(ckpts):
+    """After reload_checkpoint the served meshes are those of an engine
+    built on the new weights, and not the old ones: the dense decode reads
+    the re-folded volume-decoder layers."""
+    x, pos = _requests()[0]
+    svc = _service(ckpts["main"][1])
+    try:
+        old = svc.submit(x, pos)
+        svc.reload_checkpoint(ckpts["moved"][1])
+        new = svc.submit(x, pos)
+        assert svc.stats["reloads"] == 1
+        cfg, sd = load_pipeline_checkpoint(ckpts["moved"][1])
+        eng = PredictEngine(cfg, sd, volume_size=pu.VOL, mc_threads=1,
+                            device="cpu")
+        meshes = eng.extract_meshes(eng.encode(*_padded(x, pos)))
+        moved_any = False
+        for o, n, m in zip(old, new, meshes):
+            assert int(n["ok"]) == int(m is not None)
+            if int(n["ok"]):
+                np.testing.assert_array_equal(n["verts"], m[0])
+                moved_any |= (not int(o["ok"]) or len(o["verts"]) != len(
+                    n["verts"]) or not np.array_equal(o["verts"], n["verts"]))
+        assert moved_any
+        # another architecture is refused
+        other = pathlib.Path(ckpts["main"][1]).with_name("other.ckpt")
+        save_pipeline_checkpoint(
+            other, dataclasses.replace(cfg, unet_f_maps=16), sd)
+        with pytest.raises(ValueError, match="architecture"):
+            svc.reload_checkpoint(other)
+    finally:
+        svc.close()
+
+
+def test_stats_under_concurrent_submits(service):
+    """16 clients with a short switch interval: every garment is served and
+    counted once."""
+    before = dict(service.stats)
+    x, pos = _requests()[0]
+    results, errs = [], []
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def client():
+            try:
+                results.append(service.submit(x[:1], pos[:1])[0])
+            except Exception as e:  # noqa: BLE001 - asserted below
+                errs.append(e)
+        threads = [threading.Thread(target=client) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not errs and not any(t.is_alive() for t in threads)
+    assert len(results) == 16 and all("error" not in r for r in results)
+    assert service.stats["requests"] - before["requests"] == 16
+    assert service.stats["garments"] - before["garments"] == 16
+
+
+def test_cli_config_and_precision(ckpts):
+    """The CLI reads configs/serve_default.yaml as the JAX CLI does; its
+    decode_precision 'high' is refused (the port has only 'highest')."""
+    from garmentnets_tpu.core import config as jax_config
+    from garmentnets_tpu_torch.core import config
+    ov = ["server.port=0", f"main.checkpoint_path={ckpts['main'][1]}",
+          "server.device=cpu"]
+    cfg = config.load_config("serve_default", config.parse_cli(ov + ["-v"]))
+    assert cfg == jax_config.load_config("serve_default", ov).to_container()
+    assert cfg["prediction"]["decode_precision"] == "high"
+    with pytest.raises(ValueError, match="highest"):
+        serve.main(cfg)
