@@ -11,17 +11,19 @@ Needs one CUDA card; exits non-zero without one. Phases, each fatal:
   3. kernels against their plain PyTorch versions at the main path's
      full-width shapes, with times (CUDA events, median), the least time
      the card could take (bound) and, where one PyTorch call computes the
-     same function, that call's time;
+     same function, that call's time; the tensor-core decode at both of
+     its tiers ('high' in the kernels line, 'default' logged);
   4. the main path: PredictEngine at the full width of PipelineConfig()
-     (B=8, N=6000, 128^3 WNF) with seeded random weights, driving
-     encode -> extract_meshes -> warp_batch with the launch counts reset
-     just before and read just after;
+     (B=8, N=6000, 128^3 WNF) with seeded random weights at its default
+     decode tier 'high', driving encode -> extract_meshes -> warp_batch,
+     then one encode at 'highest' (the f32 decode kernel), with the launch
+     counts reset just before and read just after;
   5. the server: PredictService + make_http_server at the same width on a
      checkpoint written by save_pipeline_checkpoint, 24 garments from 4
      concurrent clients through predict_remote, with launch counts per
      device batch, the overlap of host MC with the next encode, and one
      request against a direct engine run; then the engine at a tiny size
-     on the card against the CPU path;
+     on the card against the CPU path at 'highest' and 'high';
   6. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
 """
 from __future__ import annotations
@@ -39,6 +41,10 @@ N_BATCHES = 4          # main-path batches; the first one warms up
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+# dense_decode_tc limits per tier: max abs error against the plain version
+# of the same tier, and against the f32 plain output
+TC_LIMITS = {"high": (2e-5, 2e-4), "default": (5e-3, 3e-2)}
 
 
 def log(msg: str) -> None:
@@ -166,6 +172,8 @@ def phase_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
     from garmentnets_tpu_torch.kernels.dense_decode import dense_decode_cuda
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
     from garmentnets_tpu_torch.kernels.fps import furthest_point_sampling_cuda
     from garmentnets_tpu_torch.kernels.ggm import ggm_cuda
     from garmentnets_tpu_torch.kernels.sa import sa_cuda
@@ -248,7 +256,60 @@ def phase_kernels(dev) -> dict:
         replaces="garmentnets_tpu/ops/dense_decode_pallas.py:123",
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by,
         library_ms=None)
-    del z, fv, k, p
+
+    # ---- tensor-core decode, 'high' (bf16x3) and 'default' (bf16), on the
+    # same inputs ----
+    tc = {}
+    for tier in ("high", "default"):
+        lim_plain, lim_f32 = TC_LIMITS[tier]
+        passes = 3 if tier == "high" else 1
+        packed = pack_decoder(layers, tier)
+        k = dense_decode_tc_cuda(z, packed, VOL)
+        pt = dense_decode_plain(fv, layers, VOL, tier)
+        torch.cuda.synchronize()
+        err = float((k - pt).abs().max())
+        err_f32 = float((pt - p).abs().max())
+        log(f"dense decode tc {tier}: max abs err {err:.3e} against the "
+            f"plain tier (limit {lim_plain:.0e}), plain tier against f32 "
+            f"{err_f32:.3e} (> 0, limit {lim_f32:.0e})")
+        check(err <= lim_plain and bool(torch.isfinite(k).all()),
+              f"dense decode tc {tier} disagrees with its plain version")
+        check(0 < err_f32 <= lim_f32,
+              f"dense decode tc {tier}: plain tier against f32 {err_f32}")
+        del k, pt
+        ms = time_ms(lambda: dense_decode_tc_cuda(z, packed, VOL), 5)
+        pms = time_ms(lambda: dense_decode_plain(fv, layers, VOL, tier), 2)
+        hidden = list(zip(widths[1:-2], widths[2:-1]))
+        tc_ops = vox * passes * sum(2 * a * b_ for a, b_ in hidden)
+        # CUDA cores: the separable upsample, the first affine, the bf16
+        # splits of every hidden layer's input (one conversion, or three
+        # operations for hi and lo), each epilogue and the head
+        cc_ops = up_ops + vox * (
+            3 * c1 + (3 if passes == 3 else 1) * sum(a for a, _ in hidden)
+            + 3 * sum(b_ for _, b_ in hidden) + 2 * widths[-2] + 3)
+        tc_bytes = z.numel() * 4 + vox * 4 + packed.wts.numel() * 2 + sum(
+            t.numel() * 4 for t in (packed.aff0, packed.epi, packed.head))
+        t_tc = tc_ops / BF16_FLOPS * 1e3
+        t_cc = cc_ops / F32_FLOPS * 1e3
+        t_b = tc_bytes / HBM_BYTES_PER_S * 1e3
+        bnd = max(t_tc, t_cc, t_b)
+        by = "bytes" if t_b >= max(t_tc, t_cc) else "operations"
+        which = ("bytes" if by == "bytes" else "tensor-core operations"
+                 if t_tc >= t_cc else "CUDA-core operations")
+        log(f"dense decode tc {tier}: kernel {ms:.3f} ms, plain {pms:.3f} ms,"
+            f" bound {bnd:.3f} ms ({which}; tensor cores {t_tc:.3f} ms for "
+            f"{tc_ops / 1e12:.3f} TFLOP, CUDA cores {t_cc:.3f} ms, bytes "
+            f"{t_b:.4f} ms), {tc_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on "
+            f"the tensor cores achieved")
+        tc[tier] = dict(err=err, ms=ms, pms=pms, bnd=bnd, by=by)
+    t = tc["high"]
+    rows["dense_decode_tc"] = dict(
+        name="dense_decode_tc", route="cuda",
+        source="garmentnets_tpu_torch/csrc/dense_decode_tc.cu",
+        replaces="garmentnets_tpu/ops/dense_decode_pallas.py:123",
+        max_abs_err=t["err"], ms=t["ms"], plain_ms=t["pms"],
+        bound_ms=t["bnd"], bound_by=t["by"], library_ms=None)
+    del z, fv, p
 
     # ---- ggm: [8,128,128,128], sigma 0.5 ----
     vol = torch.from_numpy(cloth_like_wnf(VOL)).to(dev)
@@ -346,7 +407,9 @@ def phase_kernels(dev) -> dict:
 
 
 def phase_main_path(dev) -> dict:
-    """PredictEngine at the full width of PipelineConfig() on the card."""
+    """PredictEngine at the full width of PipelineConfig() on the card, at
+    its default decode tier ('high', the tensor-core kernel), then one
+    batch of an engine at 'highest' (the f32 decode kernel)."""
     import torch
     from garmentnets_tpu_torch.core.random_weights import seeded_init_
     from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
@@ -361,6 +424,10 @@ def phase_main_path(dev) -> dict:
     seeded_init_(model, 0)
     engine = PredictEngine(cfg, model.state_dict(), volume_size=VOL,
                            gradient_sigma=0.5, iso_level=0.5, device=dev)
+    check(engine.decode_precision == "high", "the engine's default tier")
+    f32_engine = PredictEngine(cfg, model.state_dict(), volume_size=VOL,
+                               gradient_sigma=0.5, iso_level=0.5,
+                               decode_precision="highest", device=dev)
     rng = np.random.RandomState(0)
     x = rng.rand(B, N, 3).astype(np.float32)
     pos = (rng.rand(B, N, 3) - 0.5).astype(np.float32)
@@ -393,12 +460,22 @@ def phase_main_path(dev) -> dict:
             stages["meshes"].append((t2 - t1) * 1e3)
             stages["warp"].append((t3 - t2) * 1e3)
     elapsed = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    enc32 = f32_engine.encode(x, pos)
+    torch.cuda.synchronize()
+    encode32_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(_build.LAUNCHES)
     engine.close()
-    log(f"main path launches over {N_BATCHES} batches: {launches}")
-    check(launches == {"fps": 2 * N_BATCHES, "dense_decode": N_BATCHES,
-                       "ggm": N_BATCHES, "sa": 2 * N_BATCHES},
+    f32_engine.close()
+    log(f"main path launches over {N_BATCHES} batches at 'high' and one at "
+        f"'highest': {launches}")
+    n_all = N_BATCHES + 1
+    check(launches == {"fps": 2 * n_all, "dense_decode": 1,
+                       "dense_decode_tc": N_BATCHES, "ggm": n_all,
+                       "sa": 2 * n_all},
           f"unexpected launch counts {launches}")
+    check(bool(torch.isfinite(enc32["wnf_ggm"]).all()), "f32 ggm not finite")
+    del enc32
 
     for key in ("wnf_ggm", "feature_volume", "pred_nocs", "global_logits"):
         check(bool(torch.isfinite(enc[key]).all()), f"{key} not finite")
@@ -416,9 +493,10 @@ def phase_main_path(dev) -> dict:
     gps = B * (N_BATCHES - 1) / elapsed
     med = {k: statistics.median(v) for k, v in stages.items()}
     log(f"main path on {torch.cuda.get_device_name(0)}: {gps:.3f} "
-        f"garments/s (B={B}, N={N}, {VOL}^3, "
+        f"garments/s (B={B}, N={N}, {VOL}^3, decode 'high', "
         f"{N_BATCHES - 1} timed batches, stages run in sequence); "
-        f"median ms per batch: encode {med['encode']:.1f}, host MC "
+        f"median ms per batch: encode {med['encode']:.1f} (one batch at "
+        f"'highest': {encode32_ms:.1f}), host MC "
         f"{med['meshes']:.1f}, warp {med['warp']:.1f}; verts per garment "
         f"{nverts[0]}; shipped bricks on the random net's WNF: "
         f"{real_counts.tolist()}")
@@ -579,9 +657,11 @@ def phase_serve(dev) -> dict:
             f"ok garment {n_verts[:4]}...; launches {launches}; host MC "
             f"overlapped the next encode in {overlapped} batches")
         check(n_ok >= 1, "no garment came back with a mesh")
+        check(service.engine.decode_precision == "high",
+              "the service's default tier")
         check(n_batches >= 1 and launches == {
-            "fps": 2 * n_batches, "dense_decode": n_batches,
-            "ggm": n_batches, "sa": 2 * n_batches},
+            "fps": 2 * n_batches, "dense_decode_tc": n_batches,
+            "dense_decode": 0, "ggm": n_batches, "sa": 2 * n_batches},
               f"serve launches {launches} over {n_batches} batches")
         check(overlapped >= 1, "host MC never overlapped the next encode")
         lat = np.percentile(latencies, [50, 90])
@@ -641,9 +721,10 @@ def small_cfg():
 
 
 def phase_small_reference(dev) -> None:
-    """A tiny engine on the card against the same engine on the CPU. The
-    seed gives a WNF that varies and crosses the iso level, so the WNF and
-    ggm comparisons compare something."""
+    """A tiny engine on the card against the same engine on the CPU, at
+    the decode tiers 'highest' and 'high'. The seed gives a WNF that varies
+    and crosses the iso level, so the WNF and ggm comparisons compare
+    something."""
     import torch
     from garmentnets_tpu_torch.core.random_weights import seeded_init_
     from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
@@ -654,25 +735,29 @@ def phase_small_reference(dev) -> None:
     rng = np.random.RandomState(4)
     x = rng.rand(2, 256, 3).astype(np.float32)
     pos = (rng.rand(2, 256, 3) - 0.5).astype(np.float32)
-    out = {}
-    for d in (dev, "cpu"):
-        eng = PredictEngine(cfg, model.state_dict(), volume_size=32,
-                            return_volume=True, mc_threads=1, device=d)
-        out[str(d)] = {k: v.cpu() for k, v in eng.encode(x, pos).items()
-                       if torch.is_tensor(v)}
-    g, c = out[str(dev)], out["cpu"]
-    wnf_std = float(c["wnf_volume"].std())
-    check(wnf_std >= 1e-2 and float(c["wnf_ggm"].abs().max()) > 0,
-          f"small-input WNF is flat (std {wnf_std:.2e}): compares nothing")
-    same_nocs = bool(torch.equal(g["pred_nocs"], c["pred_nocs"]))
-    errs = {k: float((g[k] - c[k]).abs().max())
-            for k in ("feature_volume", "wnf_volume", "wnf_ggm")}
-    log(f"small input, card vs CPU: NOCS bins identical {same_nocs}, "
-        f"WNF std {wnf_std:.3e}, shipped bricks "
-        f"{c['active_counts'].tolist()}, max abs err {errs}")
-    check(same_nocs, "NOCS bins differ between card and CPU")
-    check(all(e <= 1e-3 for e in errs.values()),
-          "card and CPU paths disagree on a small input")
+    for tier in ("highest", "high"):
+        out = {}
+        for d in (dev, "cpu"):
+            eng = PredictEngine(cfg, model.state_dict(), volume_size=32,
+                                return_volume=True, decode_precision=tier,
+                                mc_threads=1, device=d)
+            out[str(d)] = {k: v.cpu() for k, v in eng.encode(x, pos).items()
+                           if torch.is_tensor(v)}
+            eng.close()
+        g, c = out[str(dev)], out["cpu"]
+        wnf_std = float(c["wnf_volume"].std())
+        check(wnf_std >= 1e-2 and float(c["wnf_ggm"].abs().max()) > 0,
+              f"small-input WNF is flat (std {wnf_std:.2e}): compares "
+              "nothing")
+        same_nocs = bool(torch.equal(g["pred_nocs"], c["pred_nocs"]))
+        errs = {k: float((g[k] - c[k]).abs().max())
+                for k in ("feature_volume", "wnf_volume", "wnf_ggm")}
+        log(f"small input at '{tier}', card vs CPU: NOCS bins identical "
+            f"{same_nocs}, WNF std {wnf_std:.3e}, shipped bricks "
+            f"{c['active_counts'].tolist()}, max abs err {errs}")
+        check(same_nocs, "NOCS bins differ between card and CPU")
+        check(all(e <= 1e-3 for e in errs.values()),
+              f"card and CPU paths disagree on a small input at '{tier}'")
 
 
 def main() -> int:

@@ -10,7 +10,7 @@
 // (head holds k_head [C_last] followed by b_head, g_head, s_head)
 // where z = fv @ K0 + b0 on the coarse grid is computed outside the kernel
 // (layer 0 commutes with interpolation). The interpolation taps are the
-// align-corners pairs of the plain version's _slab_plan, applied in its order
+// align-corners pairs of ops/dense_decode.axis_plan, applied in the order
 // (D, then H, then W). Nothing of the fine lattice but the output touches
 // device memory.
 //

@@ -3,8 +3,8 @@
 Per batch:
   encode: stage-1 PointNet++ (FPS kernel) -> NOCS + confidence -> volume
       aggregation -> 3D U-Net -> dense WNF over the volume_size^3 lattice
-      (fused decode kernel) -> gaussian gradient magnitude (ggm kernel) ->
-      int8 brick extraction and page packing.
+      (the fused decode kernel of the precision tier) -> gaussian gradient
+      magnitude (ggm kernel) -> int8 brick extraction and page packing.
   extract_meshes: host C++ marching cubes on the brick pages, one garment
       per thread.
   warp: surface decoder at the mesh vertices plus the ggm gather at each
@@ -36,7 +36,8 @@ from garmentnets_tpu_torch.core.device import (
     full_f32, resolve_device, to_device)
 from garmentnets_tpu_torch.models.pipeline import (
     ConvImplicitWNFPipeline, PipelineConfig)
-from garmentnets_tpu_torch.ops.dense_decode import dense_decode, eval_layers
+from garmentnets_tpu_torch.ops.dense_decode import (
+    check_precision, dense_decode, eval_layers)
 from garmentnets_tpu_torch.ops.gaussian import gaussian_gradient_magnitude
 from garmentnets_tpu_torch.ops.isosurface import (
     extract_active_bricks, pack_brick_pages, read_page_counts,
@@ -69,16 +70,15 @@ class PredictEngine:
                  volume_size: int = 128, gradient_sigma: float = 0.5,
                  iso_level: float = 0.5, gradient_direction: str = "ascent",
                  active_cap: Optional[int] = None,
-                 decode_precision: str = "highest",
+                 decode_precision: str = "high",
                  return_volume: bool = False,
                  mc_threads: Optional[int] = None,
                  device="cuda"):
         """state_dict: the pipeline's weights in the reference layout (see
-        core/weights.py). decode_precision: only 'highest' (f32) exists in
-        the port so far."""
-        if str(decode_precision).lower() != "highest":
-            raise ValueError("decode_precision: only 'highest' is supported "
-                             f"by the port, got {decode_precision!r}")
+        core/weights.py). decode_precision: the dense decode's tier, 'high'
+        (bf16x3, the JAX engine's default), 'default' (bf16) or 'highest'
+        (f32), case-insensitive."""
+        self.decode_precision = check_precision(decode_precision)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = ConvImplicitWNFPipeline(cfg)
@@ -103,10 +103,26 @@ class PredictEngine:
                       if mc_threads > 1 else None)
 
     def load_state_dict(self, state_dict: dict) -> None:
-        """Load new weights (the same architecture) and re-fold the volume
-        decoder's layers, which the dense decode reads."""
+        """Load new weights (the same architecture), re-fold the volume
+        decoder's layers, which the dense decode reads, and, for the
+        tensor-core kernel of a bf16 tier on the card, re-pack their bf16
+        parts."""
         self.model.load_state_dict(state_dict)
         self._vd_layers = eval_layers(self.model.volume_decoder.mlp)
+        self._vd_packed = None
+        if self.device.type == "cuda" and self.decode_precision != "highest":
+            from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+                pack_decoder)
+            self._vd_packed = pack_decoder(self._vd_layers,
+                                           self.decode_precision)
+
+    def _decode(self, feature_volume: torch.Tensor) -> torch.Tensor:
+        """The dense WNF at the engine's tier. The transposed volume decoded
+        at the xyz lattice equals the volume decoded at the flipped
+        lattice: ImplicitWNFDecoder's axis quirk."""
+        return dense_decode(feature_volume.transpose(1, 3).contiguous(),
+                            self._vd_layers, self.volume_size,
+                            self.decode_precision, packed=self._vd_packed)
 
     def close(self) -> None:
         """Stop the marching-cubes worker threads."""
@@ -128,11 +144,7 @@ class PredictEngine:
         with record_function("encode/aggregate_unet3d"):
             feature_volume = self.model.unet3d_forward(p2["nocs_data"])
         with record_function("encode/dense_decode"):
-            # the transposed volume decoded at the xyz lattice equals the
-            # volume decoded at the flipped lattice: ImplicitWNFDecoder's
-            # axis quirk
-            wnf = dense_decode(feature_volume.transpose(1, 3).contiguous(),
-                               self._vd_layers, self.volume_size)
+            wnf = self._decode(feature_volume)
         with record_function("encode/ggm"):
             ggm = gaussian_gradient_magnitude(wnf, self.gradient_sigma)
         with record_function("encode/bricks_and_pages"):
@@ -240,9 +252,7 @@ class PredictEngine:
     def _dense_wnf(self, enc: dict) -> torch.Tensor:
         if "wnf_volume" in enc:
             return enc["wnf_volume"]
-        fv = enc["feature_volume"]
-        return dense_decode(fv.transpose(1, 3).contiguous(), self._vd_layers,
-                            self.volume_size)
+        return self._decode(enc["feature_volume"])
 
     @torch.no_grad()
     @full_f32()

@@ -36,7 +36,7 @@ per-garment dicts. CLI (reads configs/serve_default.yaml, dotted
 overrides; needs pyyaml):
 
     python -m garmentnets_tpu_torch.harness.serve \\
-        main.checkpoint_path=<pipeline.ckpt> prediction.decode_precision=highest
+        main.checkpoint_path=<pipeline.ckpt>
 """
 from __future__ import annotations
 
@@ -399,8 +399,8 @@ def predict_remote(url: str, x: np.ndarray, pos: np.ndarray) -> list:
 # ---------------------------------------------------------------------------
 def main(cfg: dict) -> None:
     """Serve until interrupted. `server.device` picks the device (the card
-    unless it says cpu); `prediction.decode_precision` must be 'highest',
-    the only precision the port has."""
+    unless it says cpu); `prediction.decode_precision` picks the dense
+    decode's tier ('high' when unset, as in the JAX server)."""
     server_cfg = cfg.get("server", {})
     pred_cfg = cfg.get("prediction", {})
     service = PredictService(
@@ -415,7 +415,7 @@ def main(cfg: dict) -> None:
             "iso_level": pred_cfg.get("iso_surface_level", 0.5),
             "gradient_direction": pred_cfg.get("gradient_direction",
                                                "ascent"),
-            "decode_precision": pred_cfg.get("decode_precision", "highest"),
+            "decode_precision": pred_cfg.get("decode_precision", "high"),
         })
     host = server_cfg.get("host", "127.0.0.1")
     port = int(server_cfg.get("port", 8777))

@@ -5,11 +5,21 @@ volume_size^3 lattice. For a regular lattice the trilinear lookup is
 separable, and the first affine layer commutes with interpolation (the
 weights sum to 1), so layer 0 runs on the coarse grid before upsampling.
 
-- `dense_decode_plain`: the separable slab version (D, then H, then W
-  interpolation as small matmuls), the CPU path and the kernel's reference.
-- `dense_decode`: on a CUDA tensor, the fused hand-written kernel
-  (kernels/dense_decode.py, csrc/dense_decode.cu); on a CPU tensor, the
-  plain version.
+Precision tiers of the hidden layers' products, the JAX engine's own
+(`garmentnets_tpu/ops/dense_decode_pallas.py::_mm`):
+- 'highest': f32.
+- 'high': bf16x3. Both operands split into a bf16 high part and a bf16
+  residual (`split_bf16`); hi*hi + hi*lo + lo*hi, accumulated in f32.
+- 'default': hi*hi alone.
+The trilinear upsample and the scalar head stay in f32 at every tier.
+
+- `dense_decode_plain`: the separable slab version (two-tap interpolation
+  along D, then H, then W, rounded as the kernels round it), the CPU path
+  and the kernels' reference.
+- `dense_decode`: on a CUDA tensor, the fused hand-written kernel of the
+  tier ('highest': kernels/dense_decode.py, csrc/dense_decode.cu; 'high'
+  and 'default': kernels/dense_decode_tc.py, csrc/dense_decode_tc.cu); on a
+  CPU tensor, the plain version of the tier.
 """
 from __future__ import annotations
 
@@ -17,6 +27,39 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+PRECISIONS = ("highest", "high", "default")
+
+
+def check_precision(precision: str) -> str:
+    """The tier's canonical name; raises on an unknown one."""
+    key = str(precision).lower()
+    if key not in PRECISIONS:
+        raise ValueError(f"decode_precision must be one of "
+                         f"{sorted(PRECISIONS)}, got {precision!r}")
+    return key
+
+
+def split_bf16(x: torch.Tensor):
+    """(hi, lo) bf16 with hi = bf16(x) and lo = bf16(x - f32(hi)), both
+    rounded to nearest even, as the JAX kernel's `_mm` splits."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(x.dtype)).to(torch.bfloat16)
+    return hi, lo
+
+
+def tier_matmul(x: torch.Tensor, w: torch.Tensor, precision: str
+                ) -> torch.Tensor:
+    """x @ w at a tier. The products of two bf16 values are exact in f32,
+    so the bf16 tiers are f32 matmuls of the split parts."""
+    if precision == "highest":
+        return x @ w
+    xh, xl = (t.float() for t in split_bf16(x))
+    wh, wl = (t.float() for t in split_bf16(w))
+    if precision == "default":
+        return xh @ wh
+    return xh @ wh + xh @ wl + xl @ wh
 
 
 def interp_matrix(s_out: int, s_in: int, dtype=np.float32) -> np.ndarray:
@@ -55,32 +98,9 @@ def eval_layers(mlp: torch.nn.Module) -> list:
     return out
 
 
-def _slab_plan(S: int, D: int, slab: int):
-    """Per-slab D-axis interpolation plan: each output slice interpolates
-    exactly 2 adjacent source slices, so a slab of `slab` output slices only
-    needs a `win`-wide contiguous source window. Returns
-    (d0 [n_slabs] i32 window starts, w_win [n_slabs, slab, win] f32 weights,
-    win)."""
-    n_slabs = S // slab
-    pos = np.arange(S) * (D - 1) / max(S - 1, 1)
-    lo = np.clip(np.floor(pos).astype(np.int64), 0, D - 2)  # pair base
-    frac = (pos - lo).astype(np.float32)
-    slab_base = lo.reshape(n_slabs, slab)
-    d0 = slab_base.min(axis=1)
-    win = int((slab_base.max(axis=1) + 1 - d0).max()) + 1
-    d0 = np.minimum(d0, D - win)
-    w_win = np.zeros((n_slabs, slab, win), np.float32)
-    for i in range(n_slabs):
-        for j in range(slab):
-            off = slab_base[i, j] - d0[i]
-            w_win[i, j, off] += 1 - frac[i * slab + j]
-            w_win[i, j, off + 1] += frac[i * slab + j]
-    return d0.astype(np.int32), w_win, win
-
-
 def axis_plan(S: int, n: int, device="cpu"):
-    """Per-output-index taps of one axis, formed as _slab_plan forms them
-    (float64 positions, f32 weights), on `device`: (lo [S] int32 in
+    """Per-output-index taps of one axis, formed as interp_matrix forms
+    them (float64 positions, f32 weights), on `device`: (lo [S] int32 in
     [0, n-2], w [S, 2] f32 = (1 - frac, frac))."""
     pos = (torch.arange(S, dtype=torch.float64, device=device) * (n - 1)
            / max(S - 1, 1))
@@ -88,6 +108,18 @@ def axis_plan(S: int, n: int, device="cpu"):
     frac = (pos - lo).to(torch.float32)
     w = torch.stack([1 - frac, frac], dim=-1).contiguous()
     return lo.to(torch.int32), w
+
+
+def lerp_axis(x: torch.Tensor, dim: int, lo: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """Two-tap interpolation of x along `dim` with one axis's taps:
+    w0 * x[lo] + w1 * x[lo + 1], each product and the sum rounded to f32,
+    as the kernels compute it."""
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    lo = lo.long()
+    return (w[:, 0].reshape(shape) * x.index_select(dim, lo)
+            + w[:, 1].reshape(shape) * x.index_select(dim, lo + 1))
 
 
 def _as_torch_layers(layers, device) -> list:
@@ -102,10 +134,13 @@ def coarse_first_layer(feature_volume: torch.Tensor, layers) -> torch.Tensor:
 
 
 def dense_decode_plain(feature_volume: torch.Tensor, layers,
-                       volume_size: int) -> torch.Tensor:
+                       volume_size: int, precision: str = "highest"
+                       ) -> torch.Tensor:
     """Separable slab decode. feature_volume [B, D, H, W, C]; layers:
-    (K, b, g, s) per layer (numpy or torch). Returns [B, S, S, S] for a
-    scalar head, else [B, S, S, S, O]."""
+    (K, b, g, s) per layer (numpy or torch); precision: the tier of the
+    hidden layers' products. Returns [B, S, S, S] for a scalar head, else
+    [B, S, S, S, O]."""
+    precision = check_precision(precision)
     dev = feature_volume.device
     layers = _as_torch_layers(layers, dev)
     B, D, H, W, C = feature_volume.shape
@@ -113,32 +148,44 @@ def dense_decode_plain(feature_volume: torch.Tensor, layers,
     slab = next(s for s in (8, 4, 2, 1) if S % s == 0)  # D slices at once
     z = coarse_first_layer(feature_volume, layers)
     g0, s0 = layers[0][2], layers[0][3]
-    wh = torch.as_tensor(interp_matrix(S, H), device=dev)
-    ww = torch.as_tensor(interp_matrix(S, W), device=dev)
-    d0, w_win, win = _slab_plan(S, D, slab)
-    w_win = torch.as_tensor(w_win, device=dev)
+    (lo_d, w_d), plan_h, plan_w = (
+        axis_plan(S, D, dev), axis_plan(S, H, dev), axis_plan(S, W, dev))
     out = []
-    for i in range(S // slab):
-        zz = z[:, int(d0[i]):int(d0[i]) + win]
-        h = torch.einsum("sd,bdhwc->bshwc", w_win[i], zz)
-        h = torch.einsum("oh,bshwc->bsowc", wh, h)
-        h = torch.einsum("ow,bshwc->bshoc", ww, h)
+    for d0 in range(0, S, slab):
+        # D, then H, then W, the kernels' order of the trilinear taps
+        h = lerp_axis(z, 1, lo_d[d0:d0 + slab], w_d[d0:d0 + slab])
+        h = lerp_axis(h, 2, *plan_h)
+        h = lerp_axis(h, 3, *plan_w)
         h = torch.relu(h) * g0 + s0
-        for (k, b, g, s) in layers[1:]:
-            h = torch.relu(h @ k + b) * g + s
-        out.append(h)
+        for (k, b, g, s) in layers[1:-1]:
+            h = torch.relu(tier_matmul(h, k, precision) + b) * g + s
+        k, b, g, s = layers[-1]
+        out.append(torch.relu(h @ k + b) * g + s)
     out = torch.cat(out, dim=1)
     return out[..., 0] if out.shape[-1] == 1 else out
 
 
 def dense_decode(feature_volume: torch.Tensor, layers,
-                 volume_size: int) -> torch.Tensor:
-    """[B, D, H, W, C] -> [B, S, S, S]: the fused CUDA kernel for a CUDA
-    tensor (scalar heads only), the plain slab version for a CPU tensor."""
-    if feature_volume.is_cuda:
+                 volume_size: int, precision: str = "highest",
+                 packed=None) -> torch.Tensor:
+    """[B, D, H, W, C] -> [B, S, S, S] at a precision tier: for a CUDA
+    tensor the fused f32 kernel ('highest') or the tensor-core kernel
+    ('high', 'default'), scalar heads only; for a CPU tensor the plain slab
+    version of the tier. `packed`: the tensor-core kernel's weights from
+    kernels/dense_decode_tc.pack_decoder for these layers and this tier
+    (packed on the fly when None)."""
+    precision = check_precision(precision)
+    if not feature_volume.is_cuda:
+        return dense_decode_plain(feature_volume, layers, volume_size,
+                                  precision)
+    layers = _as_torch_layers(layers, feature_volume.device)
+    z = coarse_first_layer(feature_volume, layers).contiguous()
+    if precision == "highest":
         from garmentnets_tpu_torch.kernels.dense_decode import (
             dense_decode_cuda)
-        layers = _as_torch_layers(layers, feature_volume.device)
-        z = coarse_first_layer(feature_volume, layers).contiguous()
         return dense_decode_cuda(z, layers, volume_size)
-    return dense_decode_plain(feature_volume, layers, volume_size)
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
+    if packed is None:
+        packed = pack_decoder(layers, precision)
+    return dense_decode_tc_cuda(z, packed, volume_size)

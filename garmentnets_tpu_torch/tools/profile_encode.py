@@ -3,8 +3,8 @@
     python -m garmentnets_tpu_torch.tools.profile_encode [--batches 3]
 
 Builds the PredictEngine at the full width of PipelineConfig() (B=8,
-N=6000, 128^3 WNF) with seeded random weights, traces --batches calls of
-engine.encode with torch.profiler and prints:
+N=6000, 128^3 WNF) with seeded random weights at its default decode tier,
+traces --batches calls of engine.encode with torch.profiler and prints:
   - per-stage device ms per encode: the span on the device timeline of
     each of the engine's encode/* ranges (first kernel start to last
     kernel end);
@@ -80,7 +80,7 @@ def main(argv=None) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
 
     name = torch.cuda.get_device_name(0)
-    print(f"device: {name}")
+    print(f"device: {name}; decode precision {engine.decode_precision}")
     print(f"encode stage spans on the device (ms per encode, "
           f"{args.batches} traced): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
@@ -88,7 +88,9 @@ def main(argv=None) -> None:
           f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%)")
     for k, v in top:
         print(f"  {v:9.3f} ms  {k[:90]}")
-    print(json.dumps({"device": name, "stage_spans_ms": stages,
+    print(json.dumps({"device": name,
+                      "decode_precision": engine.decode_precision,
+                      "stage_spans_ms": stages,
                       "traced_wall_ms": wall_ms,
                       "device_busy_ms": busy, "top_kernels_ms": dict(top)}))
     engine.close()

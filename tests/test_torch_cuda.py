@@ -12,7 +12,7 @@ import torch
 import chip_smoke
 from garmentnets_tpu_torch.kernels import _build
 from garmentnets_tpu_torch.ops.dense_decode import (
-    coarse_first_layer, dense_decode_plain)
+    coarse_first_layer, dense_decode, dense_decode_plain)
 from garmentnets_tpu_torch.ops.gaussian import ggm_plain, ggm_taps
 from garmentnets_tpu_torch.ops.pointcloud import furthest_point_sampling_plain
 from garmentnets_tpu_torch.ops.set_abstraction import sa_fused_plain
@@ -81,8 +81,56 @@ def test_decode_kernel_refuses_vector_head(dev):
         dense_decode_cuda(torch.zeros(1, 4, 4, 4, 8, device=dev), layers, 8)
 
 
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("coarse,S,widths", [
+    ((2, 8, 8, 8), 16, (8, 24, 24, 1)),
+    ((2, 5, 6, 7), 20, (6, 16, 16, 16, 1)),   # two hidden layers
+    ((1, 4, 4, 4), 7, (5, 12, 1)),            # no hidden layer
+    ((2, 8, 8, 8), 32, (128, 256, 256, 1)),   # the main path's widths
+])
+def test_tc_decode_kernel_matches_plain_tier(dev, precision, coarse, S,
+                                             widths):
+    """The tensor-core kernel against the plain version of its tier. The
+    products are the same; the sums run in another order (and through the
+    tensor cores' adders), so 'high' holds 2e-4. At 'default' that order
+    can flip the bf16 rounding of an activation that feeds a second hidden
+    layer (one bf16 ulp, 2^-8 relative): every voxel holds 5e-3 with at
+    most one hidden layer; with two, 99.9% of the voxels hold 5e-3 and
+    all of them 5e-2."""
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
+    fv, layers = chip_smoke.decode_inputs(
+        torch.Generator().manual_seed(S), coarse, widths, dev)
+    want = dense_decode_plain(fv, layers, S, precision)
+    assert float(want.std()) > 0.1           # the field is not flat
+    before = _build.LAUNCHES["dense_decode_tc"]
+    out = dense_decode_tc_cuda(coarse_first_layer(fv, layers).contiguous(),
+                               pack_decoder(layers, precision), S)
+    assert _build.LAUNCHES["dense_decode_tc"] == before + 1
+    err = (out - want).abs()
+    if precision == "high":
+        assert float(err.max()) <= 2e-4, float(err.max())
+    elif len(widths) <= 4:
+        assert float(err.max()) <= 5e-3, float(err.max())
+    else:
+        assert float((err > 5e-3).float().mean()) <= 1e-3
+        assert float(err.max()) <= 5e-2, float(err.max())
+
+
+def test_tc_decode_kernel_refuses_vector_head(dev):
+    layers = [tuple(torch.ones(*s, device=dev) for s in
+                    ((4, 8), (8,), (8,), (8,))),
+              tuple(torch.ones(*s, device=dev) for s in
+                    ((8, 3), (3,), (3,), (3,)))]
+    for precision in ("high", "default"):
+        with pytest.raises(ValueError, match="scalar head"):
+            dense_decode(torch.zeros(1, 4, 4, 4, 4, device=dev), layers, 8,
+                         precision)
+
+
 def test_engine_card_matches_cpu(dev):
-    """A tiny engine on the card against the same weights on the CPU."""
+    """A tiny engine on the card against the same weights on the CPU, at
+    the decode tiers 'highest' and 'high'."""
     chip_smoke.phase_small_reference(dev)
 
 

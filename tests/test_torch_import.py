@@ -37,6 +37,7 @@ EXPECTED = [
         "harness.predict_engine", "harness.serve", "core.builders",
         "core.checkpoint", "core.config", "core.device", "core.weights",
         "kernels.sa", "kernels.fps", "kernels.dense_decode", "kernels.ggm",
+        "kernels.dense_decode_tc",
         "ops.set_abstraction", "models.pointnet2")]
 
 

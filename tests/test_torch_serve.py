@@ -73,7 +73,8 @@ def _live_head(variables, x, pos, share=0.1, shift=0.0):
     head["dense_1"]["bias"][:] = 100.0
     probe = PredictEngine(pu.torch_cfg(), state_dict_from_jax(v),
                           volume_size=pu.VOL, return_volume=True,
-                          mc_threads=1, device="cpu")
+                          decode_precision="highest", mc_threads=1,
+                          device="cpu")
     z = probe.encode(x, pos)["wnf_volume"].numpy() - 100.0
     head["dense_1"]["bias"][:] = 0.5 + shift - np.quantile(z, 1 - share)
     return v
@@ -108,7 +109,8 @@ def _service(ckpt, **kw):
 
 @pytest.fixture(scope="module")
 def service(ckpts):
-    svc = _service(ckpts["main"][1])
+    svc = _service(ckpts["main"][1],
+                   engine_kwargs={"decode_precision": "highest"})
     yield svc
     svc.close()
 
@@ -129,7 +131,8 @@ def both_results(ckpts, service):
     # queries the JAX engine evaluates (its wire format), on a separate
     # engine
     eng = PredictEngine(service.cfg, service.engine.model.state_dict(),
-                        volume_size=pu.VOL, mc_threads=1, device="cpu")
+                        volume_size=pu.VOL, decode_precision="highest",
+                        mc_threads=1, device="cpu")
     warps16 = []
     for (x, pos), (jres, _) in zip(_requests(), out):
         enc = eng.encode(*_padded(x, pos))
@@ -190,7 +193,8 @@ def test_submit_matches_engine_on_padded_batch(service):
     x, pos = _requests()[1]
     got = service.submit(x, pos)
     eng = PredictEngine(service.cfg, service.engine.model.state_dict(),
-                        volume_size=pu.VOL, mc_threads=1, device="cpu")
+                        volume_size=pu.VOL, decode_precision="highest",
+                        mc_threads=1, device="cpu")
     enc = eng.encode(*_padded(x, pos))
     meshes = eng.extract_meshes(enc)
     warps = eng.warp_batch(enc, meshes)
@@ -316,14 +320,16 @@ def test_hot_reload_reaches_the_decoded_wnf(ckpts):
     built on the new weights, and not the old ones: the dense decode reads
     the re-folded volume-decoder layers."""
     x, pos = _requests()[0]
-    svc = _service(ckpts["main"][1])
+    svc = _service(ckpts["main"][1],
+                   engine_kwargs={"decode_precision": "high"})
     try:
         old = svc.submit(x, pos)
         svc.reload_checkpoint(ckpts["moved"][1])
         new = svc.submit(x, pos)
         assert svc.stats["reloads"] == 1
         cfg, sd = load_pipeline_checkpoint(ckpts["moved"][1])
-        eng = PredictEngine(cfg, sd, volume_size=pu.VOL, mc_threads=1,
+        eng = PredictEngine(cfg, sd, volume_size=pu.VOL,
+                            decode_precision="high", mc_threads=1,
                             device="cpu")
         meshes = eng.extract_meshes(eng.encode(*_padded(x, pos)))
         moved_any = False
@@ -371,9 +377,10 @@ def test_stats_under_concurrent_submits(service):
     assert service.stats["garments"] - before["garments"] == 16
 
 
-def test_cli_config_and_precision(ckpts):
-    """The CLI reads configs/serve_default.yaml as the JAX CLI does; its
-    decode_precision 'high' is refused (the port has only 'highest')."""
+def test_cli_config_and_precision(ckpts, monkeypatch):
+    """The CLI reads configs/serve_default.yaml as the JAX CLI does and
+    builds the service from it unmodified, at its decode_precision 'high';
+    an unknown precision name raises."""
     from garmentnets_tpu.core import config as jax_config
     from garmentnets_tpu_torch.core import config
     ov = ["server.port=0", f"main.checkpoint_path={ckpts['main'][1]}",
@@ -381,5 +388,19 @@ def test_cli_config_and_precision(ckpts):
     cfg = config.load_config("serve_default", config.parse_cli(ov + ["-v"]))
     assert cfg == jax_config.load_config("serve_default", ov).to_container()
     assert cfg["prediction"]["decode_precision"] == "high"
-    with pytest.raises(ValueError, match="highest"):
-        serve.main(cfg)
+    built = []
+    make = serve.make_http_server
+
+    def make_and_stop(service, host, port):
+        httpd = make(service, host, port)
+        built.append(service.engine.decode_precision)
+        httpd.serve_forever = lambda: None   # return instead of serving
+        return httpd
+
+    monkeypatch.setattr(serve, "make_http_server", make_and_stop)
+    serve.main(cfg)
+    assert built == ["high"]
+    bogus = config.load_config("serve_default", config.parse_cli(
+        ov + ["prediction.decode_precision=bogus"]))
+    with pytest.raises(ValueError, match="decode_precision must be one of"):
+        serve.main(bogus)

@@ -61,9 +61,9 @@ def _randomize(tree, rng, path=()):
     return out
 
 
-def jax_variables(seed=0):
+def jax_variables(seed=0, cfg=None):
     """Numpy variables tree {"params", "batch_stats"} of the tiny JAX
-    pipeline."""
+    pipeline (or of the JAX configuration `cfg`)."""
     import jax
     import jax.numpy as jnp
     from garmentnets_tpu.models.pipeline import ConvImplicitWNFPipeline
@@ -71,7 +71,7 @@ def jax_variables(seed=0):
     batch = {"x": jnp.asarray(x["x"]), "pos": jnp.asarray(x["pos"]),
              "volume_query_points": jnp.asarray(x["sq"]),
              "surf_query_points": jnp.asarray(x["sq"])}
-    model = ConvImplicitWNFPipeline(jax_cfg())
+    model = ConvImplicitWNFPipeline(cfg or jax_cfg())
     variables = jax.jit(lambda key: model.init(key, batch, train=False))(
         jax.random.PRNGKey(seed))
     rng = np.random.RandomState(seed + 7)
