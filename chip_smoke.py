@@ -11,8 +11,10 @@ Needs one CUDA card; exits non-zero without one. Phases, each fatal:
   3. kernels against their plain PyTorch versions at the main path's
      full-width shapes, with times (CUDA events, median), the least time
      the card could take (bound) and, where one PyTorch call computes the
-     same function, that call's time; the tensor-core decode at both of
-     its tiers ('high' in the kernels line, 'default' logged);
+     same function, that call's time; FPS also on inputs full of exact
+     ties, with its time per pick; the tensor-core decode at both of its
+     tiers ('high' in the kernels line, 'default' logged); the
+     tensor-core set abstraction against the plain 'high' tier and f32;
   4. the main path: PredictEngine at the full width of PipelineConfig()
      (B=8, N=6000, 128^3 WNF) with seeded random weights at its default
      decode tier 'high', driving encode -> extract_meshes -> warp_batch,
@@ -129,6 +131,29 @@ def decode_inputs(gen, coarse_shape, widths, dev):
     return fv, layers
 
 
+def fps_points(kind: str, B: int, N: int, seed: int) -> np.ndarray:
+    """[B, N, 3] float32 points for checking FPS: "random" (uniform in a
+    unit cube), "duplicates" (every point two or three times, shuffled),
+    "lattice" (a shuffled cubic lattice of step 1/8: exact, equal
+    distances everywhere) or "identical" (one point N times)."""
+    rs = np.random.RandomState(seed)
+    if kind == "random":
+        return rs.rand(B, N, 3).astype(np.float32) - 0.5
+    if kind == "duplicates":
+        base = rs.rand(B, N // 3 + 1, 3).astype(np.float32) - 0.5
+        pos = np.concatenate([base, base, base], axis=1)[:, :N]
+        return np.ascontiguousarray(pos[:, rs.permutation(N)])
+    if kind == "lattice":
+        g = int(np.ceil(N ** (1 / 3)))
+        ax = np.arange(g, dtype=np.float32) * np.float32(0.125)
+        lat = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1)
+        lat = lat.reshape(-1, 3)[:N]
+        return np.stack([lat[rs.permutation(N)] for _ in range(B)])
+    if kind == "identical":
+        return np.zeros((B, N, 3), np.float32)
+    raise ValueError(f"unknown point set {kind!r}")
+
+
 def sa_layers(gen, widths, dev):
     """Folded layers (K, b, g, s) with centred biases, so the ReLUs are
     live and the set-abstraction output varies."""
@@ -176,7 +201,8 @@ def phase_kernels(dev) -> dict:
         dense_decode_tc_cuda, pack_decoder)
     from garmentnets_tpu_torch.kernels.fps import furthest_point_sampling_cuda
     from garmentnets_tpu_torch.kernels.ggm import ggm_cuda
-    from garmentnets_tpu_torch.kernels.sa import sa_cuda
+    from garmentnets_tpu_torch.kernels.sa_tc import (
+        pack_sa_layers, sa_tc_cuda)
     from garmentnets_tpu_torch.ops.dense_decode import (
         coarse_first_layer, dense_decode_plain)
     from garmentnets_tpu_torch.ops.gaussian import ggm_plain, ggm_taps
@@ -189,28 +215,41 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(1)
     rows = {}
 
-    # ---- FPS: SA1 [8,6000,3] -> 3000, SA2 [8,3000,3] -> 750 ----
+    # ---- FPS: SA1 [8,6000,3] -> 3000, SA2 [8,3000,3] -> 750, on random
+    # points and on inputs full of exact ties ----
     pos1 = (torch.rand(B, N, 3, generator=gen) - 0.5).to(dev)
-    fps = dict(ms=0.0, plain_ms=0.0, bound=0.0, err=0)
+    fps = dict(ms=0.0, plain_ms=0.0, bound=0.0, err=0, picks=0)
     pos = pos1
     for n_pts, m in ((N, N // 2), (N // 2, N // 8)):
         k = furthest_point_sampling_cuda(pos, m)
         p = furthest_point_sampling_plain(pos, m)
-        torch.cuda.synchronize()
-        mism = int((k != p).sum())
-        log(f"fps [{B},{n_pts},3]->{m}: {mism} index mismatches")
-        check(mism == 0, f"fps indices differ at N={n_pts}")
+        mism = {"random": int((k != p).sum())}
         fps["err"] = max(fps["err"], int((k - p).abs().max()))
+        for kind in ("duplicates", "lattice"):
+            tie = torch.from_numpy(fps_points(kind, B, n_pts, n_pts)).to(dev)
+            kt = furthest_point_sampling_cuda(tie, m)
+            pt = furthest_point_sampling_plain(tie, m)
+            mism[kind] = int((kt != pt).sum())
+            fps["err"] = max(fps["err"], int((kt - pt).abs().max()))
+        torch.cuda.synchronize()
+        log(f"fps [{B},{n_pts},3]->{m}: index mismatches {mism}")
+        check(not any(mism.values()), f"fps indices differ at N={n_pts}")
         ms = time_ms(lambda: furthest_point_sampling_cuda(pos, m), 10)
         pms = time_ms(lambda: furthest_point_sampling_plain(pos, m), 2)
         bnd, _ = bound_ms(B * n_pts * 12 + B * m * 8,
                           B * (m - 1) * n_pts * 9, F32_FLOPS)
-        log(f"fps N={n_pts} M={m}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-            f"bound {bnd:.4f} ms")
+        log(f"fps N={n_pts} M={m}: kernel {ms:.3f} ms, "
+            f"{ms * 1e3 / (m - 1):.3f} us per pick ({m - 1} dependent "
+            f"picks), plain {pms:.3f} ms, bound {bnd:.4f} ms (operations; "
+            f"{bnd * 1e3 / (m - 1):.4f} us per pick, which no chain of "
+            f"dependent picks can approach)")
         fps["ms"] += ms
         fps["plain_ms"] += pms
         fps["bound"] += bnd
+        fps["picks"] += m - 1
         pos = gather_rows(pos, k).contiguous()
+    log(f"fps both calls: kernel {fps['ms']:.3f} ms, "
+        f"{fps['ms'] * 1e3 / fps['picks']:.3f} us per pick on average")
     rows["fps"] = dict(
         name="fps", route="cuda", source="garmentnets_tpu_torch/csrc/fps.cu",
         replaces="garmentnets_tpu/kernels/fps_pallas.py:65",
@@ -351,55 +390,85 @@ def phase_kernels(dev) -> dict:
         library_ms=lms)
     del vol, k, p
 
-    # ---- set abstraction: SA1 6->64->64->128 at [8,6000] -> 3000, SA2
-    # 131->128->128->256 at [8,3000] -> 750, K=64 ----
-    sa = dict(ms=0.0, plain_ms=0.0, bound=0.0, t_ops=0.0, t_bytes=0.0,
-              ops_all=0.0, err=0.0)
+    # ---- set abstraction on the tensor cores (bf16x3): SA1 6->64->64->128
+    # at [8,6000] -> 3000, SA2 131->128->128->256 at [8,3000] -> 750, K=64 ----
+    sa = dict(ms=0.0, plain_ms=0.0, bound=0.0, f32_bound=0.0, t_tc=0.0,
+              t_cc=0.0, t_b=0.0, err=0.0)
     pos = None
     for n_pts, m, cin, widths, radius in (
             (N, N // 2, 3, (6, 64, 64, 128), 0.05),
             (N // 2, N // 8, 128, (131, 128, 128, 256), 0.1)):
         args = sa_inputs(gen, B, n_pts, m, cin, widths, radius, dev, pos)
         x, pos_in, centers, idx, mask, layers = args
-        k = sa_cuda(*args)
+        # the packed weights, as SAModule caches them between calls
+        packed = pack_sa_layers(layers, cin + 3)
+        k = sa_tc_cuda(*args, packed)
+        ph = sa_fused_plain(*args, precision="high")
         p = sa_fused_plain(*args)
         torch.cuda.synchronize()
+        err_h = float((k - ph).abs().max())
         err = float((k - p).abs().max())
         std = float(p.std())
         share = float(mask.float().mean())
-        log(f"sa [{B},{n_pts},{cin}] -> [{B},{m},{widths[-1]}]: max abs err "
-            f"{err:.3e} (limit 1e-4), output std {std:.3e}, valid slots "
-            f"{share:.4f}")
+        log(f"sa_tc [{B},{n_pts},{cin}] -> [{B},{m},{widths[-1]}]: max abs "
+            f"err {err_h:.3e} against the plain 'high' tier (limit 2e-05), "
+            f"{err:.3e} against f32 (limit 1e-04), output std {std:.3e}, "
+            f"valid slots {share:.4f}")
         check(std >= 0.1, f"sa check output is flat at N={n_pts}")
-        check(err <= 1e-4 and bool(torch.isfinite(k).all()),
-              f"sa disagrees with its plain version at N={n_pts}")
-        ms = time_ms(lambda: sa_cuda(*args), 10)
-        pms = time_ms(lambda: sa_fused_plain(*args), 3)
-        ops = sa_ops(mask, layers)
-        ops_all = ops / share
-        n_bytes = (x.numel() + pos_in.numel() + centers.numel()
-                   + B * m * widths[-1]) * 4 + idx.numel() * 9 + sum(
-                       t.numel() * 4 for lay in layers for t in lay)
-        bnd, by = bound_ms(n_bytes, ops, F32_FLOPS)
-        log(f"sa N={n_pts} M={m}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-            f"bound {bnd:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP over the "
-            f"valid slots, {ops_all / F32_FLOPS * 1e3:.4f} ms over all "
-            f"{idx.numel()} slots), {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
-            f"achieved")
+        check(err_h <= 2e-5 and err <= 1e-4
+              and bool(torch.isfinite(k).all()),
+              f"sa_tc disagrees with its plain versions at N={n_pts}")
+        ms = time_ms(lambda: sa_tc_cuda(*args, packed), 10)
+        pms = time_ms(lambda: sa_fused_plain(*args, precision="high"), 3)
+        f32_ms = time_ms(lambda: sa_fused_plain(*args), 3)
+        pack_ms = time_ms(lambda: pack_sa_layers(layers, cin + 3), 10)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            pack_sa_layers(layers, cin + 3)
+        pack_host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+        # over the valid slots, at the real widths: the products (three
+        # bf16 passes), and on the CUDA cores the relative position, the
+        # bf16 split of every layer's input (3 operations an element), bias,
+        # ReLU and affine (4 an output) and the max
+        slots = float(mask.sum())
+        prods = slots * sum(2 * kk.shape[0] * kk.shape[1]
+                            for kk, _, _, _ in layers)
+        cc = slots * (3 + sum(3 * kk.shape[0] + 4 * kk.shape[1]
+                              for kk, _, _, _ in layers) + widths[-1])
+        n_bytes = ((x.numel() + pos_in.numel() + centers.numel()
+                    + B * m * widths[-1]) * 4 + idx.numel() * 9
+                   + packed.wts.numel() * 2 + packed.epi.numel() * 4)
+        t_tc = 3 * prods / BF16_FLOPS * 1e3
+        t_cc = cc / F32_FLOPS * 1e3
+        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+        bnd = max(t_tc, t_cc, t_b)
+        f32_bnd, _ = bound_ms(n_bytes, sa_ops(mask, layers), F32_FLOPS)
+        log(f"sa_tc N={n_pts} M={m}: kernel {ms:.3f} ms, plain 'high' "
+            f"{pms:.3f} ms, plain f32 {f32_ms:.3f} ms, bound {bnd:.4f} ms "
+            f"(tensor cores {t_tc:.4f} ms for {3 * prods / 1e9:.2f} GFLOP, "
+            f"CUDA cores {t_cc:.4f} ms, bytes {t_b:.4f} ms; f32 bound "
+            f"{f32_bnd:.4f} ms), {3 * prods / (ms * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s on the tensor cores over the valid slots, "
+            f"{3 * prods / share / (ms * 1e-3) / 1e12:.1f} over all "
+            f"slots; weight packing (once per weight change) {pack_ms:.3f} "
+            f"ms on the device, {pack_host_ms:.3f} ms on the host")
         sa["ms"] += ms
         sa["plain_ms"] += pms
         sa["bound"] += bnd
-        sa["t_ops"] += bound_ms(0, ops, F32_FLOPS)[0]
-        sa["t_bytes"] += bound_ms(n_bytes, 0, F32_FLOPS)[0]
-        sa["ops_all"] += ops_all
-        sa["err"] = max(sa["err"], err)
+        sa["f32_bound"] += f32_bnd
+        sa["t_tc"] += t_tc
+        sa["t_cc"] += t_cc
+        sa["t_b"] += t_b
+        sa["err"] = max(sa["err"], err_h)
         pos = centers
-    by = "operations" if sa["t_ops"] >= sa["t_bytes"] else "bytes"
-    log(f"sa both calls: kernel {sa['ms']:.3f} ms, plain "
-        f"{sa['plain_ms']:.3f} ms, bound {sa['bound']:.4f} ms ({by}), "
-        f"{sa['ops_all'] / F32_FLOPS * 1e3:.4f} ms over all slots")
-    rows["sa"] = dict(
-        name="sa", route="cuda", source="garmentnets_tpu_torch/csrc/sa.cu",
+    by = "bytes" if sa["t_b"] >= max(sa["t_tc"], sa["t_cc"]) else "operations"
+    log(f"sa_tc both calls: kernel {sa['ms']:.3f} ms, plain 'high' "
+        f"{sa['plain_ms']:.3f} ms, bound {sa['bound']:.4f} ms ({by}), f32 "
+        f"bound {sa['f32_bound']:.4f} ms")
+    rows["sa_tc"] = dict(
+        name="sa_tc", route="cuda",
+        source="garmentnets_tpu_torch/csrc/sa_tc.cu",
         replaces="garmentnets_tpu/kernels/sa_pallas.py:166",
         max_abs_err=sa["err"], ms=sa["ms"], plain_ms=sa["plain_ms"],
         bound_ms=sa["bound"], bound_by=by, library_ms=None)
@@ -472,7 +541,7 @@ def phase_main_path(dev) -> dict:
     n_all = N_BATCHES + 1
     check(launches == {"fps": 2 * n_all, "dense_decode": 1,
                        "dense_decode_tc": N_BATCHES, "ggm": n_all,
-                       "sa": 2 * n_all},
+                       "sa_tc": 2 * n_all},
           f"unexpected launch counts {launches}")
     check(bool(torch.isfinite(enc32["wnf_ggm"]).all()), "f32 ggm not finite")
     del enc32
@@ -655,13 +724,13 @@ def phase_serve(dev) -> dict:
             f"{n_clients * n_requests * per_request} garments in "
             f"{n_batches} device batches, ok=1 for {n_ok}, verts per "
             f"ok garment {n_verts[:4]}...; launches {launches}; host MC "
-            f"overlapped the next encode in {overlapped} batches")
+            f"began while the next encode ran in {overlapped} batches")
         check(n_ok >= 1, "no garment came back with a mesh")
         check(service.engine.decode_precision == "high",
               "the service's default tier")
         check(n_batches >= 1 and launches == {
             "fps": 2 * n_batches, "dense_decode_tc": n_batches,
-            "dense_decode": 0, "ggm": n_batches, "sa": 2 * n_batches},
+            "dense_decode": 0, "ggm": n_batches, "sa_tc": 2 * n_batches},
               f"serve launches {launches} over {n_batches} batches")
         check(overlapped >= 1, "host MC never overlapped the next encode")
         lat = np.percentile(latencies, [50, 90])

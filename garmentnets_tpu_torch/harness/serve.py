@@ -118,7 +118,7 @@ class PredictService:
         self._pending_state = None   # hot-reload staging (lock-guarded)
         self._reload_lock = threading.Lock()
         self._stats_lock = threading.Lock()
-        # mc_overlapped: batches whose host marching cubes ended while the
+        # mc_overlapped: batches whose host marching cubes began while the
         # next batch's encode was still running on the device
         self.stats = {"requests": 0, "garments": 0, "batches": 0,
                       "reloads": 0, "mc_overlapped": 0,
@@ -250,9 +250,11 @@ class PredictService:
             if pending is not None:
                 enc, pjobs = pending
                 try:
+                    self.engine.host_outputs(enc)    # batch i on the host
+                    overlapped = nxt is not None and not (
+                        self.engine.encode_done(nxt[0]))
                     meshes = self.engine.extract_meshes(enc)
-                    if nxt is not None and not self.engine.encode_done(
-                            nxt[0]):
+                    if overlapped:
                         self._count("mc_overlapped")
                     handle = self.engine.warp_dispatch(enc, meshes)
                     inflight.append((handle, pjobs, enc, meshes))

@@ -4,8 +4,9 @@ Every CUDA kernel source `csrc/<name>.cu` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface
 (`_build/lib<name>-<hash>.so`) and loaded with ctypes. The host
 marching-cubes source `ops/cpp/marching.cpp` is compiled the same way with
-`g++`. The library name carries a hash of the source and flags, so an
-edited source is rebuilt; a temp file plus `os.replace` keeps concurrent
+`g++`. The library name carries a hash of the source, the headers it may
+include (`csrc/*.cuh`) and the flags, so an edited source or header is
+rebuilt; a temp file plus `os.replace` keeps concurrent
 processes from loading a half-written library. A failed build raises.
 
 Nothing here runs at import time: the first CUDA launch (or
@@ -26,7 +27,7 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
 CSRC_DIR = PKG_DIR / "csrc"
-CUDA_SOURCES = ("fps", "dense_decode", "ggm", "sa", "dense_decode_tc")
+CUDA_SOURCES = ("fps", "dense_decode", "ggm", "sa_tc", "dense_decode_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
@@ -66,6 +67,9 @@ def _target(name: str) -> tuple:
         src = CSRC_DIR / f"{name}.cu"
         cmd = [_nvcc(), *NVCC_FLAGS, str(src)]
     h = hashlib.sha256(src.read_bytes() + " ".join(cmd[1:]).encode())
+    if name != "marching":
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
     return cmd, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -47,23 +47,27 @@ def core_index(row, k, kgroups: int):
     return ((row // 8) * kgroups + k // 8) * 64 + (row % 8) * 8 + k % 8
 
 
-def pack_wgmma_weights(k: torch.Tensor, np_: int, parts: int
+def pack_wgmma_weights(k: torch.Tensor, np_: int, parts: int,
+                       rows: int | None = None, kc: int = KC
                        ) -> torch.Tensor:
-    """K [cin, cout] f32 -> [np_/KC, parts, np_ * KC] bf16: per 32-row
-    chunk of K (zero-padded to [np_, np_]), the bf16 hi part and, with
-    parts=2, the lo part, each as the kernel's B-operand image: element
-    (n, kk) of chunk c (B = K^T, K-major) at core_index(n, kk, KC // 8)."""
+    """K [cin, cout] f32 -> [rows/kc, parts, np_ * kc] bf16: per kc-row
+    chunk of K (zero-padded to [rows, np_], rows = np_ by default), the
+    bf16 hi part and, with parts=2, the lo part, each as the kernel's
+    B-operand image: element (n, kk) of chunk c (B = K^T, K-major) at
+    core_index(n, kk, kc // 8)."""
+    rows = np_ if rows is None else rows
     cin, cout = k.shape
-    if cin > np_ or cout > np_ or np_ % KC:
-        raise ValueError(f"cannot pack a [{cin}, {cout}] layer at {np_}")
-    w = torch.zeros(np_, np_, dtype=torch.float32, device=k.device)
+    if cin > rows or cout > np_ or rows % kc or np_ % 8 or kc % 8:
+        raise ValueError(f"cannot pack a [{cin}, {cout}] layer at "
+                         f"[{rows}, {np_}] in {kc}-row chunks")
+    w = torch.zeros(rows, np_, dtype=torch.float32, device=k.device)
     w[:cin, :cout] = k
     hi, lo = split_bf16(w)
     out = []
     for part in (hi, lo)[:parts]:
         # (c, kg, k8, ng, n8) -> (c, ng, kg, n8, k8)
-        t = part.reshape(np_ // KC, KC // 8, 8, np_ // 8, 8)
-        out.append(t.permute(0, 3, 1, 4, 2).reshape(np_ // KC, np_ * KC))
+        t = part.reshape(rows // kc, kc // 8, 8, np_ // 8, 8)
+        out.append(t.permute(0, 3, 1, 4, 2).reshape(rows // kc, np_ * kc))
     return torch.stack(out, dim=1).contiguous()
 
 

@@ -11,8 +11,22 @@ import torch
 
 from garmentnets_tpu_torch.kernels import _build
 
-# per-block dynamic shared memory: x, y, z and the running minimum
+# the shared-memory instance's dynamic shared memory: x, y, z and the
+# running minimum
 MAX_POINTS = 232448 // 16 - 64
+REG_THREADS = 512              # threads of the register instance
+SMEM_THREADS = 1024            # threads of the shared-memory instance
+PPTS = (2, 4, 6, 8, 12, 16)    # points per thread of the register instances
+
+
+def fps_plan(n: int) -> tuple:
+    """(threads, points per thread) of the kernel instance for N = n
+    points: the register instance with the fewest points per thread that
+    covers n, or (SMEM_THREADS, 0) for the shared-memory instance."""
+    for ppt in PPTS:
+        if n <= REG_THREADS * ppt:
+            return REG_THREADS, ppt
+    return SMEM_THREADS, 0
 
 
 def furthest_point_sampling_cuda(pos: torch.Tensor,
@@ -28,9 +42,9 @@ def furthest_point_sampling_cuda(pos: torch.Tensor,
     out = torch.empty((B, num_samples), dtype=torch.int64, device=pos.device)
     fn = _build.cuda_fn("fps", "fps_launch", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(pos.device):
-        err = fn(pos.data_ptr(), B, N, num_samples, out.data_ptr(),
-                 _build.stream_handle(pos))
+        err = fn(pos.data_ptr(), B, N, num_samples, fps_plan(N)[1],
+                 out.data_ptr(), _build.stream_handle(pos))
     _build.check_launch("fps", err)
     return out

@@ -12,6 +12,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from garmentnets_tpu_torch.kernels.sa_tc import pack_sa_layers
 from garmentnets_tpu_torch.models.mlp import PointMLP
 from garmentnets_tpu_torch.ops.dense_decode import eval_layers
 from garmentnets_tpu_torch.ops.pointcloud import (
@@ -41,6 +42,23 @@ class SAModule(nn.Module):
         self.radius = radius
         self.max_neighbors = max_neighbors
         self.conv = _PointConv(PointMLP(mlp_channels, batch_norm))
+        self._eval_key = None
+        self._eval_cache = None
+
+    def folded_layers(self, device: torch.device):
+        """The MLP folded for eval mode, (K, b, g, s) per layer, and on the
+        card its packed image for the kernel (None on the CPU). Cached until
+        a parameter or buffer of the MLP changes: load_state_dict copies in
+        place, which bumps the tensors' version counters."""
+        mlp = self.conv.local_nn
+        key = (str(device), tuple((t.data_ptr(), t._version) for t in
+                                  (*mlp.parameters(), *mlp.buffers())))
+        if key != self._eval_key:
+            layers = eval_layers(mlp)
+            packed = (pack_sa_layers(layers, layers[0][0].shape[0])
+                      if device.type == "cuda" else None)
+            self._eval_cache, self._eval_key = (layers, packed), key
+        return self._eval_cache
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor):
         B, N, _ = pos.shape
@@ -50,10 +68,9 @@ class SAModule(nn.Module):
         nbr_idx, nbr_mask = ball_query(pos, centers, self.radius,
                                        k=self.max_neighbors)       # [B,M,K]
         if not self.training:
-            # folded at each call, so reloaded weights take effect at once
-            layers = eval_layers(self.conv.local_nn)
-            return sa_fused(x, pos, centers, nbr_idx, nbr_mask,
-                            layers), centers
+            layers, packed = self.folded_layers(x.device)
+            return sa_fused(x, pos, centers, nbr_idx, nbr_mask, layers,
+                            packed), centers
         # training mode: stock ops (the kernel has no backward)
         # one gather of the combined [x | pos] rows
         C = x.shape[-1]

@@ -10,6 +10,8 @@ traces --batches calls of engine.encode with torch.profiler and prints:
     kernel end);
   - device time by kernel name per encode, and the device busy share
     (kernel time over the encode's wall time with the profiler on);
+  - the share of valid neighbour slots in each set-abstraction call
+    (SA1, SA2), read from one more encode outside the trace;
   - one JSON line with all of it.
 Needs a CUDA device.
 """
@@ -25,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from garmentnets_tpu_torch.core.random_weights import seeded_init_
 from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
+from garmentnets_tpu_torch.models import pointnet2
 from garmentnets_tpu_torch.models.pipeline import (
     ConvImplicitWNFPipeline, PipelineConfig)
 
@@ -77,6 +80,20 @@ def main(argv=None) -> None:
         elif ms > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
     busy = sum(by_name.values())
+
+    # valid-slot shares of the set-abstraction calls, outside the trace
+    shares = []
+    sa_fused = pointnet2.sa_fused
+
+    def counting_sa_fused(*args):
+        shares.append(float(args[4].float().mean()))     # the mask
+        return sa_fused(*args)
+
+    pointnet2.sa_fused = counting_sa_fused
+    try:
+        engine.encode(x, pos)
+    finally:
+        pointnet2.sa_fused = sa_fused
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
 
     name = torch.cuda.get_device_name(0)
@@ -86,13 +103,16 @@ def main(argv=None) -> None:
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     print(f"traced encode: wall {wall_ms:.2f} ms (profiler on), device "
           f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%)")
+    print("valid neighbour slots: "
+          + ", ".join(f"SA{i + 1} {v:.4f}" for i, v in enumerate(shares)))
     for k, v in top:
         print(f"  {v:9.3f} ms  {k[:90]}")
     print(json.dumps({"device": name,
                       "decode_precision": engine.decode_precision,
                       "stage_spans_ms": stages,
                       "traced_wall_ms": wall_ms,
-                      "device_busy_ms": busy, "top_kernels_ms": dict(top)}))
+                      "device_busy_ms": busy, "valid_slot_share": shares,
+                      "top_kernels_ms": dict(top)}))
     engine.close()
 
 

@@ -44,3 +44,22 @@ def test_launch_counted_only_on_success(monkeypatch):
     assert _build.LAUNCHES["fps"] == 1
     _build.reset_launch_counts()
     assert _build.LAUNCHES["fps"] == 0
+
+
+def test_edited_header_gets_new_cuda_libraries(tmp_path, monkeypatch):
+    """A CUDA library's name hashes the headers in csrc/ too, so editing a
+    shared header (wgmma_common.cuh) rebuilds every kernel that may
+    include it; the host library does not depend on them."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    header = csrc / "common.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    _, first = _build._target("k")
+    _, marching = _build._target("marching")
+    header.write_text("// two\n")
+    assert _build._target("k")[1] != first
+    assert _build._target("marching")[1] == marching
+    assert "sa_tc" in _build.CUDA_SOURCES and "sa" not in _build.CUDA_SOURCES

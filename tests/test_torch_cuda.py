@@ -32,11 +32,18 @@ def _rand(gen, *shape):
     return torch.rand(*shape, generator=gen)
 
 
-@pytest.mark.parametrize("B,N,M", [(3, 2000, 500), (2, 6000, 3000),
+@pytest.mark.parametrize("kind", ["random", "duplicates", "lattice"])
+@pytest.mark.parametrize("B,N,M", [(8, 6000, 3000), (8, 3000, 750),
+                                   (2, 14464, 2000), (3, 2000, 500),
                                    (1, 33, 33)])
-def test_fps_kernel_indices_identical(dev, B, N, M):
-    from garmentnets_tpu_torch.kernels.fps import furthest_point_sampling_cuda
-    pos = (_rand(torch.Generator().manual_seed(N), B, N, 3) - 0.5).to(dev)
+def test_fps_kernel_indices_identical(dev, kind, B, N, M):
+    """Both kernel instances (registers up to 8192 points, shared memory
+    above, up to MAX_POINTS = 14464) at the main path's shapes, on random
+    points and on inputs full of exact ties."""
+    from garmentnets_tpu_torch.kernels.fps import (
+        MAX_POINTS, furthest_point_sampling_cuda)
+    assert N <= MAX_POINTS
+    pos = torch.from_numpy(chip_smoke.fps_points(kind, B, N, N)).to(dev)
     before = _build.LAUNCHES["fps"]
     k = furthest_point_sampling_cuda(pos, M)
     assert _build.LAUNCHES["fps"] == before + 1
@@ -134,23 +141,37 @@ def test_engine_card_matches_cpu(dev):
     chip_smoke.phase_small_reference(dev)
 
 
+def _check_sa(args, want_inf=False):
+    """The tensor-core kernel against the plain 'high' tier (2e-5: the
+    same bf16 splits and products, f32 sums in another order) and the f32
+    plain version (1e-4), with -inf exactly where the plain version has
+    it; one launch counted."""
+    from garmentnets_tpu_torch.kernels.sa_tc import sa_tc_cuda
+    high = sa_fused_plain(*args, precision="high")
+    f32 = sa_fused_plain(*args)
+    before = _build.LAUNCHES["sa_tc"]
+    out = sa_tc_cuda(*args)
+    assert _build.LAUNCHES["sa_tc"] == before + 1
+    assert torch.equal(torch.isinf(out), torch.isinf(f32))
+    assert bool(torch.isinf(f32).any()) == want_inf
+    fin = torch.isfinite(f32)
+    assert bool(torch.isfinite(out[fin]).all())
+    assert float((out[fin] - high[fin]).abs().max()) <= 2e-5
+    assert float((out[fin] - f32[fin]).abs().max()) <= 1e-4
+    return out
+
+
 @pytest.mark.parametrize("n_pts,m,cin,widths,radius", [
     (6000, 3000, 3, (6, 64, 64, 128), 0.05),          # SA1
     (3000, 750, 128, (131, 128, 128, 256), 0.1),      # SA2
 ])
 def test_sa_kernel_matches_plain_full_shapes(dev, n_pts, m, cin, widths,
                                              radius):
-    """B=8, K=64, indices from the port's FPS and ball query; tolerance
-    1e-4 (f32 sums in another order than cuBLAS's)."""
-    from garmentnets_tpu_torch.kernels.sa import sa_cuda
+    """B=8, K=64, indices from the port's FPS and ball query."""
     args = chip_smoke.sa_inputs(torch.Generator().manual_seed(n_pts), 8,
                                 n_pts, m, cin, widths, radius, dev)
-    want = sa_fused_plain(*args)
-    assert float(want.std()) > 0.1           # the output is not flat
-    before = _build.LAUNCHES["sa"]
-    out = sa_cuda(*args)
-    assert _build.LAUNCHES["sa"] == before + 1
-    torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+    assert float(sa_fused_plain(*args).std()) > 0.1   # not flat
+    _check_sa(args)
 
 
 def _random_sa_case(seed, B, N, M, K, cin, widths, keep, dev):
@@ -169,28 +190,28 @@ def _random_sa_case(seed, B, N, M, K, cin, widths, keep, dev):
     (97, 24, 5, (8, 40, 32), 0.6),        # odd M, Cin 5, padded K and width
     (50, 64, 3, (6, 16, 8), 0.03),        # heavily masked: empty rows
     (33, 8, 3, (6, 256), 1.0),            # one layer at the widest width
+    (40, 64, 128, (131, 128, 128, 256), 0.9),   # SA2's widths (weight ring)
 ])
 def test_sa_kernel_random_cases(dev, M, K, cin, widths, keep):
-    from garmentnets_tpu_torch.kernels.sa import sa_cuda
     args = _random_sa_case(M, 2, 300, M, K, cin, widths, keep, dev)
-    want = sa_fused_plain(*args)
-    if keep < 0.1:
-        assert bool(torch.isinf(want).any())   # some rows have no slot
-    torch.testing.assert_close(sa_cuda(*args), want, rtol=0, atol=1e-4)
+    _check_sa(args, want_inf=keep < 0.1)
 
 
-def test_sa_kernel_single_valid_slot(dev):
-    """Each row keeps exactly one valid slot, at a random position."""
-    from garmentnets_tpu_torch.kernels.sa import sa_cuda
-    args = _random_sa_case(5, 2, 400, 70, 64, 3, (6, 64, 128), 1.0, dev)
+@pytest.mark.parametrize("widths", [(6, 64, 64, 128), (131, 128, 128, 256)])
+def test_sa_kernel_single_valid_slot_and_empty_center(dev, widths):
+    """Each center keeps exactly one valid slot, at a random position,
+    except three that keep none and must give -inf."""
+    args = _random_sa_case(5, 2, 400, 70, 64, widths[0] - 3, widths, 1.0,
+                           dev)
     g = torch.Generator().manual_seed(6)
     slot = torch.randint(0, 64, (2, 70, 1), generator=g).to(dev)
     mask = torch.zeros(2, 70, 64, dtype=torch.bool, device=dev)
-    args[4] = mask.scatter_(2, slot, True)
-    want = sa_fused_plain(*args)
-    assert bool(torch.isfinite(want).all())
-    torch.testing.assert_close(sa_cuda(*args), want, rtol=0, atol=1e-4)
-
+    mask.scatter_(2, slot, True)
+    mask[0, 3] = mask[1, 0] = mask[1, 69] = False
+    args[4] = mask
+    out = _check_sa(args, want_inf=True)
+    assert bool(torch.isinf(out[0, 3]).all() and (out[0, 3] < 0).all())
+    assert int(torch.isinf(out).any(-1).sum()) == 3
 
 
 def test_prefetch_extract_meshes_card_matches_cpu(dev):
