@@ -4,8 +4,8 @@
 // that traps after 10 s, so that a broken pipeline fails the launch
 // instead of hanging the card), bulk copies into shared memory, the
 // wgmma.mma_async products m64 x N x k16 (bf16 in, f32 accumulate) for
-// N = 64, 128 and 256, the core-matrix offset of an operand element and
-// the bf16 hi/lo split of an activation pair.
+// N = 64, 128 and 256, the core-matrix offset of an operand element, the
+// bf16 hi/lo and hi/mid/lo splits of an activation pair.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -224,6 +224,23 @@ __device__ __forceinline__ void store_split(uint8_t* a_hi, uint8_t* a_lo,
     *reinterpret_cast<__nv_bfloat162*>(a_lo + off) =
         __floats2bfloat162_rn(v0 - back.x, v1 - back.y);
   }
+}
+
+// The three-part form: hi = bf16(v), mid = bf16(v - hi),
+// lo = bf16(v - hi - mid), each rounded to nearest even; both subtractions
+// are exact in f32, so hi + mid + lo carries v's 24-bit significand.
+__device__ __forceinline__ void store_split3(uint8_t* a_hi, uint8_t* a_mid,
+                                             uint8_t* a_lo, uint32_t off,
+                                             float v0, float v1) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+  const float2 b_hi = __bfloat1622float2(hi);
+  const float r0 = v0 - b_hi.x, r1 = v1 - b_hi.y;
+  const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+  const float2 b_mid = __bfloat1622float2(mid);
+  *reinterpret_cast<__nv_bfloat162*>(a_hi + off) = hi;
+  *reinterpret_cast<__nv_bfloat162*>(a_mid + off) = mid;
+  *reinterpret_cast<__nv_bfloat162*>(a_lo + off) =
+      __floats2bfloat162_rn(r0 - b_mid.x, r1 - b_mid.y);
 }
 
 }  // namespace

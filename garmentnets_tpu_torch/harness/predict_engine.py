@@ -105,12 +105,11 @@ class PredictEngine:
     def load_state_dict(self, state_dict: dict) -> None:
         """Load new weights (the same architecture), re-fold the volume
         decoder's layers, which the dense decode reads, and, for the
-        tensor-core kernel of a bf16 tier on the card, re-pack their bf16
-        parts."""
+        tensor-core kernel on the card, re-pack their bf16 parts."""
         self.model.load_state_dict(state_dict)
         self._vd_layers = eval_layers(self.model.volume_decoder.mlp)
         self._vd_packed = None
-        if self.device.type == "cuda" and self.decode_precision != "highest":
+        if self.device.type == "cuda":
             from garmentnets_tpu_torch.kernels.dense_decode_tc import (
                 pack_decoder)
             self._vd_packed = pack_decoder(self._vd_layers,

@@ -27,7 +27,7 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
 CSRC_DIR = PKG_DIR / "csrc"
-CUDA_SOURCES = ("fps", "dense_decode", "ggm", "sa_tc", "dense_decode_tc")
+CUDA_SOURCES = ("fps", "ggm", "sa_tc", "dense_decode_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")

@@ -1,14 +1,16 @@
 """Launcher of the tensor-core dense-decode kernel (csrc/dense_decode_tc.cu).
 
 Replaces garmentnets_tpu/ops/dense_decode_pallas.py at the JAX engine's
-'high' (bf16x3) and 'default' (bf16) precisions. The plain PyTorch version
-of the same function is ops/dense_decode.dense_decode_plain at the same
-tier.
+three precisions: 'highest' (bf16x6, f32-accurate), 'high' (bf16x3) and
+'default' (bf16). The plain PyTorch version of the same function is
+ops/dense_decode.dense_decode_plain at the same tier ('highest': f32; the
+kernel's own bf16x6 arithmetic is dense_decode_plain(...,
+kernel_products=True)).
 
 The wrapper zero-pads every width to NP (64, 128 or 256) and packs each
-hidden layer's weights, split into bf16 hi (and lo at 'high'), into the
-shared-memory image of the kernel's wgmma B operand (`pack_wgmma_weights`),
-so that the kernel loads a 32-row chunk with one bulk copy.
+hidden layer's weights, split into 1-3 bf16 parts, into the shared-memory
+image of the kernel's wgmma B operand (`pack_wgmma_weights`), so that the
+kernel loads a 32-row chunk with one bulk copy.
 """
 from __future__ import annotations
 
@@ -20,14 +22,13 @@ import torch
 
 from garmentnets_tpu_torch.kernels import _build
 from garmentnets_tpu_torch.ops.dense_decode import (
-    axis_plan, check_precision, split_bf16)
+    axis_plan, check_precision, split_bf16_parts)
 
-ROWS = 128          # fine voxels per tile (csrc kRows)
 KC = 32             # weight rows per ring stage (csrc kKc)
 MAX_MID = 8
 WIDTHS = (64, 128, 256)
 SMEM_LIMIT = 232448
-PARTS = {"high": 2, "default": 1}
+PARTS = {"highest": 3, "high": 2, "default": 1}
 
 
 def padded_width(widths) -> int:
@@ -51,10 +52,10 @@ def pack_wgmma_weights(k: torch.Tensor, np_: int, parts: int,
                        rows: int | None = None, kc: int = KC
                        ) -> torch.Tensor:
     """K [cin, cout] f32 -> [rows/kc, parts, np_ * kc] bf16: per kc-row
-    chunk of K (zero-padded to [rows, np_], rows = np_ by default), the
-    bf16 hi part and, with parts=2, the lo part, each as the kernel's
-    B-operand image: element (n, kk) of chunk c (B = K^T, K-major) at
-    core_index(n, kk, kc // 8)."""
+    chunk of K (zero-padded to [rows, np_], rows = np_ by default), its
+    `parts` bf16 parts (split_bf16_parts: hi, then lo or mid and lo), each
+    as the kernel's B-operand image: element (n, kk) of chunk c (B = K^T,
+    K-major) at core_index(n, kk, kc // 8)."""
     rows = np_ if rows is None else rows
     cin, cout = k.shape
     if cin > rows or cout > np_ or rows % kc or np_ % 8 or kc % 8:
@@ -62,9 +63,8 @@ def pack_wgmma_weights(k: torch.Tensor, np_: int, parts: int,
                          f"[{rows}, {np_}] in {kc}-row chunks")
     w = torch.zeros(rows, np_, dtype=torch.float32, device=k.device)
     w[:cin, :cout] = k
-    hi, lo = split_bf16(w)
     out = []
-    for part in (hi, lo)[:parts]:
+    for part in split_bf16_parts(w, parts):
         # (c, kg, k8, ng, n8) -> (c, ng, kg, n8, k8)
         t = part.reshape(rows // kc, kc // 8, 8, np_ // 8, 8)
         out.append(t.permute(0, 3, 1, 4, 2).reshape(rows // kc, np_ * kc))
@@ -72,12 +72,12 @@ def pack_wgmma_weights(k: torch.Tensor, np_: int, parts: int,
 
 
 def unpack_wgmma_weights(packed: torch.Tensor, np_: int) -> tuple:
-    """The inverse of pack_wgmma_weights: ([np_, np_] hi, lo or None)."""
+    """The inverse of pack_wgmma_weights: every part as [np_, np_]."""
     parts = []
     for i in range(packed.shape[1]):
         t = packed[:, i].reshape(np_ // KC, np_ // 8, KC // 8, 8, 8)
         parts.append(t.permute(0, 2, 4, 1, 3).reshape(np_, np_))
-    return parts[0], (parts[1] if len(parts) > 1 else None)
+    return tuple(parts)
 
 
 @dataclass
@@ -103,9 +103,6 @@ def pack_decoder(layers, precision: str) -> PackedDecoder:
     """Layers (K, b, g, s) f32 tensors, layer 0 first (its K and b are
     applied outside the kernel), scalar head last."""
     precision = check_precision(precision)
-    if precision not in PARTS:
-        raise ValueError("the tensor-core decode runs 'high' and 'default'; "
-                         "'highest' is the f32 kernel's")
     mids, (k_head, b_head, g_head, s_head) = layers[1:-1], layers[-1]
     if k_head.shape[1] != 1:
         raise ValueError("dense decode kernel supports a scalar head only, "
@@ -141,12 +138,23 @@ def pack_decoder(layers, precision: str) -> PackedDecoder:
                          head.contiguous())
 
 
-def line_window(S: int, wc: int) -> int:
-    """The most coarse W columns one 128-voxel tile's upsample reads."""
+def tile_rows(np_: int, parts: int) -> int:
+    """Fine voxels per tile of the kernel's instance at padded width np_
+    and `parts` bf16 parts, as the library decides it (csrc tile_rows: 64
+    where three A parts of 128 rows and a weight ring would not fit in
+    shared memory, else 128). Builds the kernel's library."""
+    fn = _build.load("dense_decode_tc").dense_decode_tc_tile_rows
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn(np_, parts)
+
+
+def line_window(S: int, wc: int, rows: int = 128) -> int:
+    """The most coarse W columns one `rows`-voxel tile's upsample reads."""
     lo = np.floor(np.arange(S) * (wc - 1) / max(S - 1, 1))
     lo = np.clip(lo, 0, wc - 2).astype(np.int64)
-    starts = lo[::ROWS]
-    ends = lo[np.minimum(np.arange(0, S, ROWS) + ROWS, S) - 1]
+    starts = lo[::rows]
+    ends = lo[np.minimum(np.arange(0, S, rows) + rows, S) - 1]
     return int((ends + 2 - starts).max())
 
 
@@ -170,7 +178,7 @@ def dense_decode_tc_cuda(z: torch.Tensor, packed: PackedDecoder,
         _build.require_cuda(getattr(packed, name), f"dense decode {name}")
     _build.require_cuda(packed.wts, "dense decode weights", torch.bfloat16)
     parts = PARTS[packed.precision]
-    win = line_window(S, W)
+    win = line_window(S, W, tile_rows(packed.np_, parts))
     smem = _build.load("dense_decode_tc").dense_decode_tc_smem
     smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong

@@ -13,13 +13,13 @@ import torch
 from garmentnets_tpu_torch.kernels import _build
 
 MAX_RADIUS = 4
+MAX_WIDTH = 256     # a block holds whole rows of W (csrc/ggm.cu)
 
 
 def ggm_cuda(volume: torch.Tensor, k0: np.ndarray,
              k1: np.ndarray) -> torch.Tensor:
     """volume [B, D, H, W] float32 CUDA; k0, k1: the 2r+1 gaussian and
     derivative taps in correlation orientation -> |grad| [B, D, H, W]."""
-    _build.require_cuda(volume, "ggm volume")
     if volume.dim() != 4:
         raise ValueError(f"ggm: volume must be [B,D,H,W], got "
                          f"{tuple(volume.shape)}")
@@ -28,6 +28,9 @@ def ggm_cuda(volume: torch.Tensor, k0: np.ndarray,
         raise ValueError(f"ggm kernel supports 1 <= radius <= {MAX_RADIUS}, "
                          f"got {len(k0)} taps")
     B, D, H, W = volume.shape
+    if W > MAX_WIDTH:
+        raise ValueError(f"ggm kernel supports W <= {MAX_WIDTH}, got {W}")
+    _build.require_cuda(volume, "ggm volume")
     taps0 = (ctypes.c_float * len(k0))(*np.asarray(k0, np.float32).tolist())
     taps1 = (ctypes.c_float * len(k1))(*np.asarray(k1, np.float32).tolist())
     out = torch.empty_like(volume)

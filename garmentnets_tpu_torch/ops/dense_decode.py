@@ -7,7 +7,10 @@ weights sum to 1), so layer 0 runs on the coarse grid before upsampling.
 
 Precision tiers of the hidden layers' products, the JAX engine's own
 (`garmentnets_tpu/ops/dense_decode_pallas.py::_mm`):
-- 'highest': f32.
+- 'highest': f32. The card's kernel computes it as bf16x6: both operands
+  split into three bf16 parts (`split_bf16_3`) and the six products of
+  order 1, 2^-8 and 2^-16 accumulated in f32 (`bf16x6_matmul`, the
+  kernel's arithmetic; the CPU path does not use it).
 - 'high': bf16x3. Both operands split into a bf16 high part and a bf16
   residual (`split_bf16`); hi*hi + hi*lo + lo*hi, accumulated in f32.
 - 'default': hi*hi alone.
@@ -15,11 +18,10 @@ The trilinear upsample and the scalar head stay in f32 at every tier.
 
 - `dense_decode_plain`: the separable slab version (two-tap interpolation
   along D, then H, then W, rounded as the kernels round it), the CPU path
-  and the kernels' reference.
-- `dense_decode`: on a CUDA tensor, the fused hand-written kernel of the
-  tier ('highest': kernels/dense_decode.py, csrc/dense_decode.cu; 'high'
-  and 'default': kernels/dense_decode_tc.py, csrc/dense_decode_tc.cu); on a
-  CPU tensor, the plain version of the tier.
+  and the kernel's reference.
+- `dense_decode`: on a CUDA tensor, the tensor-core kernel at the tier
+  (kernels/dense_decode_tc.py, csrc/dense_decode_tc.cu); on a CPU tensor,
+  the plain version of the tier.
 """
 from __future__ import annotations
 
@@ -49,12 +51,43 @@ def split_bf16(x: torch.Tensor):
     return hi, lo
 
 
-def tier_matmul(x: torch.Tensor, w: torch.Tensor, precision: str
-                ) -> torch.Tensor:
+def split_bf16_3(x: torch.Tensor):
+    """(hi, mid, lo) bf16: hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid), each rounded to nearest even; both
+    subtractions are exact in f32."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(x.dtype)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(x.dtype)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def split_bf16_parts(x: torch.Tensor, parts: int) -> tuple:
+    """The first `parts` bf16 parts of x: (hi,), (hi, lo) or
+    (hi, mid, lo)."""
+    if parts == 3:
+        return split_bf16_3(x)
+    return split_bf16(x)[:parts]
+
+
+def bf16x6_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as the 'highest' kernel computes it: the six products of the
+    three-part splits of order 1, 2^-8 and 2^-16, each exact in f32, summed
+    in f32 (the three of order 2^-24 and below are dropped); the five small
+    ones are summed apart and added to hi @ hi last, as the kernel's second
+    accumulator does."""
+    x0, x1, x2 = (t.float() for t in split_bf16_3(x))
+    w0, w1, w2 = (t.float() for t in split_bf16_3(w))
+    return x0 @ w0 + (x0 @ w1 + x1 @ w0 + x0 @ w2 + x1 @ w1 + x2 @ w0)
+
+
+def tier_matmul(x: torch.Tensor, w: torch.Tensor, precision: str,
+                kernel_products: bool = False) -> torch.Tensor:
     """x @ w at a tier. The products of two bf16 values are exact in f32,
-    so the bf16 tiers are f32 matmuls of the split parts."""
+    so the bf16 tiers are f32 matmuls of the split parts.
+    kernel_products: at 'highest', the kernel's bf16x6 instead of f32."""
     if precision == "highest":
-        return x @ w
+        return bf16x6_matmul(x, w) if kernel_products else x @ w
     xh, xl = (t.float() for t in split_bf16(x))
     wh, wl = (t.float() for t in split_bf16(w))
     if precision == "default":
@@ -134,12 +167,13 @@ def coarse_first_layer(feature_volume: torch.Tensor, layers) -> torch.Tensor:
 
 
 def dense_decode_plain(feature_volume: torch.Tensor, layers,
-                       volume_size: int, precision: str = "highest"
-                       ) -> torch.Tensor:
+                       volume_size: int, precision: str = "highest",
+                       kernel_products: bool = False) -> torch.Tensor:
     """Separable slab decode. feature_volume [B, D, H, W, C]; layers:
     (K, b, g, s) per layer (numpy or torch); precision: the tier of the
-    hidden layers' products. Returns [B, S, S, S] for a scalar head, else
-    [B, S, S, S, O]."""
+    hidden layers' products; kernel_products: 'highest' as the card's
+    kernel computes it (bf16x6) instead of f32, for checking that kernel.
+    Returns [B, S, S, S] for a scalar head, else [B, S, S, S, O]."""
     precision = check_precision(precision)
     dev = feature_volume.device
     layers = _as_torch_layers(layers, dev)
@@ -158,7 +192,8 @@ def dense_decode_plain(feature_volume: torch.Tensor, layers,
         h = lerp_axis(h, 3, *plan_w)
         h = torch.relu(h) * g0 + s0
         for (k, b, g, s) in layers[1:-1]:
-            h = torch.relu(tier_matmul(h, k, precision) + b) * g + s
+            h = torch.relu(tier_matmul(h, k, precision, kernel_products)
+                           + b) * g + s
         k, b, g, s = layers[-1]
         out.append(torch.relu(h @ k + b) * g + s)
     out = torch.cat(out, dim=1)
@@ -169,21 +204,16 @@ def dense_decode(feature_volume: torch.Tensor, layers,
                  volume_size: int, precision: str = "highest",
                  packed=None) -> torch.Tensor:
     """[B, D, H, W, C] -> [B, S, S, S] at a precision tier: for a CUDA
-    tensor the fused f32 kernel ('highest') or the tensor-core kernel
-    ('high', 'default'), scalar heads only; for a CPU tensor the plain slab
-    version of the tier. `packed`: the tensor-core kernel's weights from
-    kernels/dense_decode_tc.pack_decoder for these layers and this tier
-    (packed on the fly when None)."""
+    tensor the tensor-core kernel of the tier, scalar heads only; for a CPU
+    tensor the plain slab version of the tier. `packed`: the kernel's
+    weights from kernels/dense_decode_tc.pack_decoder for these layers and
+    this tier (packed on the fly when None)."""
     precision = check_precision(precision)
     if not feature_volume.is_cuda:
         return dense_decode_plain(feature_volume, layers, volume_size,
                                   precision)
     layers = _as_torch_layers(layers, feature_volume.device)
     z = coarse_first_layer(feature_volume, layers).contiguous()
-    if precision == "highest":
-        from garmentnets_tpu_torch.kernels.dense_decode import (
-            dense_decode_cuda)
-        return dense_decode_cuda(z, layers, volume_size)
     from garmentnets_tpu_torch.kernels.dense_decode_tc import (
         dense_decode_tc_cuda, pack_decoder)
     if packed is None:

@@ -1,9 +1,11 @@
 """Where the predict engine's encode spends its time on the card.
 
     python -m garmentnets_tpu_torch.tools.profile_encode [--batches 3]
+        [--precision high]
 
 Builds the PredictEngine at the full width of PipelineConfig() (B=8,
-N=6000, 128^3 WNF) with seeded random weights at its default decode tier,
+N=6000, 128^3 WNF) with seeded random weights at a decode tier (the
+engine's default 'high' unless --precision says otherwise),
 traces --batches calls of engine.encode with torch.profiler and prints:
   - per-stage device ms per encode: the span on the device timeline of
     each of the engine's encode/* ranges (first kernel start to last
@@ -47,13 +49,15 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--precision", default="high",
+                    choices=("highest", "high", "default"))
     args = ap.parse_args(argv)
 
     cfg = PipelineConfig()
     model = ConvImplicitWNFPipeline(cfg)
     seeded_init_(model, args.seed)
     engine = PredictEngine(cfg, model.state_dict(), volume_size=VOL,
-                           mc_threads=1)
+                           decode_precision=args.precision, mc_threads=1)
     rng = np.random.RandomState(args.seed)
     x = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32)).cuda()
     pos = torch.from_numpy((rng.rand(B, N, 3) - 0.5).astype(

@@ -52,40 +52,75 @@ def test_fps_kernel_indices_identical(dev, kind, B, N, M):
 
 @pytest.mark.parametrize("shape,sigma", [((2, 24, 40, 36), 0.5),
                                          ((1, 16, 16, 16), 1.0),
-                                         ((2, 7, 9, 5), 0.5)])
+                                         ((2, 7, 9, 5), 0.5),
+                                         ((1, 8, 8, 8), 0.25),
+                                         ((3, 20, 20, 20), 0.75),
+                                         ((3, 37, 37, 37), 1.0),
+                                         ((1, 37, 37, 37), 0.5),
+                                         ((1, 6, 9, 200), 0.5),
+                                         ((8, 128, 128, 128), 0.5)])
 def test_ggm_kernel_matches_plain(dev, shape, sigma):
+    """Bit for bit: the same taps in the same order with the same
+    roundings, and a correctly rounded square root on both sides; sides
+    that are not multiples of the tile, radius 1 to 4, the 256-column
+    instance and the main path's shape."""
     from garmentnets_tpu_torch.kernels.ggm import ggm_cuda
     vol = _rand(torch.Generator().manual_seed(1), *shape).to(dev)
     k0, k1 = ggm_taps(sigma)
+    before = _build.LAUNCHES["ggm"]
     out = ggm_cuda(vol, k0, k1)
-    torch.testing.assert_close(out, ggm_plain(vol, sigma), rtol=0,
-                               atol=1e-6)
+    assert _build.LAUNCHES["ggm"] == before + 1
+    assert torch.equal(out, ggm_plain(vol, sigma))
 
 
 @pytest.mark.parametrize("coarse,S,widths", [
-    ((8, 8, 8), 32, (128, 256, 256, 1)),
-    ((5, 6, 7), 20, (16, 40, 24, 1)),
-    ((4, 4, 4), 8, (8, 16, 1)),          # no hidden layer
+    ((8, 8, 8), 32, (128, 256, 256, 1)),      # NP 256, 64-row tiles
+    ((5, 6, 7), 20, (16, 40, 24, 1)),         # NP 64
+    ((4, 4, 4), 8, (8, 16, 1)),               # no hidden layer
+    ((6, 6, 6), 24, (32, 128, 96, 64, 1)),    # NP 128, two hidden layers
+    ((5, 5, 6), 17, (64, 256, 200, 256, 1)),  # NP 256, two hidden layers
+    ((4, 5, 4), 9, (24, 200, 1)),             # NP 256, no hidden layer
 ])
 def test_decode_kernel_matches_plain(dev, coarse, S, widths):
-    from garmentnets_tpu_torch.kernels.dense_decode import dense_decode_cuda
+    """The 'highest' tier on the tensor cores (bf16x6) within 2e-5 of the
+    plain emulation of its arithmetic and within 1e-4 of the f32 plain
+    version, at widths 64, 128 and 256 with zero, one and two hidden
+    layers."""
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
     fv, layers = chip_smoke.decode_inputs(
         torch.Generator().manual_seed(S), (2, *coarse), widths, dev)
     want = dense_decode_plain(fv, layers, S)
+    emu = dense_decode_plain(fv, layers, S, kernel_products=True)
     assert float(want.std()) > 0.1           # the field is not flat
-    out = dense_decode_cuda(coarse_first_layer(fv, layers).contiguous(),
-                            layers, S)
+    before = _build.LAUNCHES["dense_decode_tc"]
+    out = dense_decode_tc_cuda(coarse_first_layer(fv, layers).contiguous(),
+                               pack_decoder(layers, "highest"), S)
+    assert _build.LAUNCHES["dense_decode_tc"] == before + 1
+    torch.testing.assert_close(out, emu, rtol=0, atol=2e-5)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
 
 
+def test_decode_tile_rows_from_the_library(dev):
+    """64-row tiles only where three A parts of 128 rows and a weight ring
+    would not fit (bf16x6 at width 256); the window covers such a tile."""
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        line_window, tile_rows)
+    rows = {(n, p): tile_rows(n, p) for n in (64, 128, 256)
+            for p in (1, 2, 3)}
+    assert rows.pop((256, 3)) == 64
+    assert set(rows.values()) == {128}
+    assert line_window(128, 32, tile_rows(256, 3)) == 17
+
+
 def test_decode_kernel_refuses_vector_head(dev):
-    from garmentnets_tpu_torch.kernels.dense_decode import dense_decode_cuda
     layers = [tuple(torch.ones(*s, device=dev) for s in
                     ((4, 8), (8,), (8,), (8,))),
               tuple(torch.ones(*s, device=dev) for s in
                     ((8, 3), (3,), (3,), (3,)))]
     with pytest.raises(ValueError, match="scalar head"):
-        dense_decode_cuda(torch.zeros(1, 4, 4, 4, 8, device=dev), layers, 8)
+        dense_decode(torch.zeros(1, 4, 4, 4, 4, device=dev), layers, 8,
+                     "highest")
 
 
 @pytest.mark.parametrize("precision", ["high", "default"])

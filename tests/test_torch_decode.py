@@ -8,7 +8,8 @@ import jax.numpy as jnp
 
 from garmentnets_tpu.ops.dense_decode import dense_decode as jax_decode
 from garmentnets_tpu.ops.dense_decode_pallas import dense_decode_fused
-from garmentnets_tpu_torch.kernels.dense_decode import dense_decode_cuda
+from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+    dense_decode_tc_cuda, pack_decoder)
 from garmentnets_tpu_torch.ops.dense_decode import (
     axis_plan, dense_decode, dense_decode_plain, interp_matrix)
 
@@ -83,8 +84,11 @@ def test_decode_cpu_tensor_takes_plain_path():
 
 
 def test_decode_launcher_refuses_cpu_tensor():
+    """The 'highest' tier's launcher (the tensor-core kernel at bf16x6)
+    takes no CPU tensor."""
     rs = np.random.RandomState(4)
     layers = [tuple(torch.from_numpy(a) for a in lay)
               for lay in _rand_layers(rs, (4, 8, 1))]
     with pytest.raises(ValueError, match="CUDA tensor"):
-        dense_decode_cuda(torch.zeros(1, 4, 4, 4, 8), layers, 8)
+        dense_decode_tc_cuda(torch.zeros(1, 4, 4, 4, 4),
+                             pack_decoder(layers, "highest"), 8)

@@ -36,7 +36,7 @@ EXPECTED = [
     "garmentnets_tpu_torch." + m for m in (
         "harness.predict_engine", "harness.serve", "core.builders",
         "core.checkpoint", "core.config", "core.device", "core.weights",
-        "kernels.sa_tc", "kernels.fps", "kernels.dense_decode", "kernels.ggm",
+        "kernels.sa_tc", "kernels.fps", "kernels.ggm",
         "kernels.dense_decode_tc",
         "ops.set_abstraction", "models.pointnet2")]
 
