@@ -22,13 +22,18 @@ Needs one CUDA card; exits non-zero without one. Phases, each fatal:
      decode tier 'high', driving encode -> extract_meshes -> warp_batch,
      then one encode at 'highest' (the same tensor-core kernel at bf16x6),
      each with the launch counts reset just before and read just after;
-  5. the server: PredictService + make_http_server at the same width on a
+  5. the predict CLI (harness/predict.py) at the same width over a
+     synthetic dataset that the port's generator writes, on a checkpoint
+     written by save_pipeline_checkpoint: every sample group's schema,
+     meshes and warp values, launch counts per batch, garments/s and each
+     batch's stage times, and the zarr codec;
+  6. the server: PredictService + make_http_server at the same width on a
      checkpoint written by save_pipeline_checkpoint, 24 garments from 4
      concurrent clients through predict_remote, with launch counts per
      device batch, the overlap of host MC with the next encode, and one
      request against a direct engine run; then the engine at a tiny size
      on the card against the CPU path at 'highest' and 'high';
-  6. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
+  7. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -782,6 +787,155 @@ def phase_serve(dev) -> dict:
         service.close()
 
 
+CLI_INSTANCES, CLI_GRIPS = 8, 4    # 32 garments, all in the test split
+CLI_SPLIT = [0, 0, 1]
+CLI_STAGES = ("encode_ms", "encode_wait_ms", "host_mc_ms",
+              "warp_dispatch_ms", "warp_collect_ms", "writer_ms")
+MC_SCHEMA = ("verts", "faces", "normals", "volume_value",
+             "volume_gradient_magnitude", "warp_field")
+PC_SCHEMA = ("pred_nocs", "pred_nocs_confidence", "pred_nocs_logits",
+             "input_points", "input_rgb", "gt_nocs")
+MISC_SCHEMA = ("gt_nocs_grip_point", "pred_nocs_grip_point",
+               "pred_global_nocs_grip_point", "pred_global_confidence",
+               "global_feature")
+
+
+def blosc_route() -> str:
+    """How the zarr writer compresses: libblosc, the pure-Python Blosc
+    engine on `zstandard`, or zlib when neither is there."""
+    from garmentnets_tpu_torch.data import blosc_codec
+    if blosc_codec._LIB is not None:
+        return "blosc (libblosc)"
+    if blosc_codec.available():
+        return "blosc (pure Python on zstandard)"
+    return "zlib (no libblosc and no zstandard: degraded)"
+
+
+def phase_predict_cli(dev) -> dict:
+    """The port's predict CLI at full width on the card: the port's
+    generator writes a synthetic dataset (no task-space volumes, a 32^3 GT
+    volume, 4 views x 1500 points; 8 instances x 4 grips, all in the test
+    split), PipelineConfig() with seeded weights and a live head is saved
+    with save_pipeline_checkpoint, and predict.main runs over it at B=8,
+    128^3, decode 'high'. Returns its launch counts."""
+    import pathlib
+    import tempfile
+
+    import torch
+    from garmentnets_tpu_torch.core.checkpoint import (
+        save_pipeline_checkpoint)
+    from garmentnets_tpu_torch.core.config import load_config
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.data import zarrlite
+    from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule
+    from garmentnets_tpu_torch.data.synthetic import generate_dataset
+    from garmentnets_tpu_torch.harness import predict
+    from garmentnets_tpu_torch.kernels import _build
+    from garmentnets_tpu_torch.models.pipeline import (
+        ConvImplicitWNFPipeline, PipelineConfig)
+
+    with tempfile.TemporaryDirectory(prefix="gn_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        generate_dataset(str(tmp / "data.zarr"), num_instances=CLI_INSTANCES,
+                         grips_per_instance=CLI_GRIPS, volume_size=32,
+                         pts_per_view=N // 4, num_views=4, seed=0,
+                         include_task_space=False)
+        log(f"predict CLI: synthetic dataset of {CLI_INSTANCES * CLI_GRIPS} "
+            f"garments in {time.perf_counter() - t0:.1f} s")
+        cfg = load_config("predict_default", [
+            f"main.checkpoint_path={tmp / 'pipeline.ckpt'}",
+            f"datamodule.zarr_path={tmp / 'data.zarr'}",
+            f"datamodule.batch_size={B}", f"datamodule.num_pc_sample={N}",
+            "datamodule.volume_size=32",
+            f"datamodule.dataset_split={CLI_SPLIT}",
+            f"prediction.volume_size={VOL}",
+            "prediction.decode_precision=high", f"prediction.device={dev}"])
+        dm = ConvImplicitWNFDataModule(**cfg["datamodule"])
+        dm.prepare_data()
+        n_garments = len(dm.test_idxs)
+        n_batches = -(-n_garments // B)
+        check(n_garments >= 3 * B, f"only {n_garments} garments to predict")
+        first = next(iter(dm.test_dataloader()))
+        model = ConvImplicitWNFPipeline(PipelineConfig())
+        seeded_init_(model, 2)
+        live_head_(model, first["x"], first["pos"], dev)
+        save_pipeline_checkpoint(tmp / "pipeline.ckpt", model.cfg,
+                                 model.state_dict())
+        del model
+
+        _build.reset_launch_counts()
+        run = predict.main(cfg, run_dir=str(tmp / "run"))
+        launches = dict(_build.LAUNCHES)
+        log(f"predict CLI launches over {n_batches} batches: {launches}")
+        check(launches == {"fps": 2 * n_batches, "sa_tc": 2 * n_batches,
+                           "dense_decode_tc": n_batches, "ggm": n_batches},
+              f"unexpected launch counts in the predict CLI: {launches}")
+
+        summary = json.loads((run / "summary.json").read_text())
+        recs = [json.loads(x) for x in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        root = zarrlite.open(str(run / "prediction.zarr"), "r")
+        groups = list(root["samples"].groups())
+        check(summary["garments"] == n_garments == len(groups),
+              f"{summary['garments']} garments written, {len(groups)} "
+              f"groups, {n_garments} in the split")
+        n_verts = []
+        for key, g in groups:
+            for sub, names in (("marching_cubes_mesh", MC_SCHEMA),
+                               ("point_cloud", PC_SCHEMA),
+                               ("misc", MISC_SCHEMA)):
+                have = {name for name, _ in g[sub].arrays()}
+                check(set(names) <= have, f"{key}/{sub} lacks "
+                      f"{sorted(set(names) - have)}")
+            for sub in ("gt_mesh", "gt_marching_cubes_mesh"):
+                check(sub in g, f"{key} lacks {sub}")
+            check(set(g.attrs.asdict()) >= {
+                "scale", "gender", "sample_id", "garment_name",
+                "grip_vertex_idx", "batch_idx"}, f"{key} attrs")
+            mc = g["marching_cubes_mesh"]
+            verts = mc["verts"][:]
+            check(len(verts) > 1 and np.isfinite(verts).all(),
+                  f"{key}: the NaN-sentinel mesh (no surface)")
+            warp = mc["warp_field"][:]
+            check(warp.shape == verts.shape and np.isfinite(warp).all()
+                  and np.isfinite(mc["volume_gradient_magnitude"][:]).all(),
+                  f"{key}: warp values not finite")
+            n_verts.append(len(verts))
+        check(root.attrs.asdict() == {"subset": "test"}, "root attrs")
+        per_batch = "; ".join(
+            f"{k[:-3]} " + ", ".join(f"{r[k]:.1f}" for r in recs)
+            for k in CLI_STAGES)
+        log(f"predict CLI on {torch.cuda.get_device_name(0)}: "
+            f"{summary['garments_per_sec']:.3f} garments/s "
+            f"({summary['garments']} garments in "
+            f"{summary['elapsed_sec']:.3f} s; B={B}, N={N}, {VOL}^3, decode "
+            f"'high', encode(i+1) under host MC(i), warp collected at depth "
+            f"2, zarr written by a writer thread, data loaded by 2 worker "
+            f"threads); zarr codec: {blosc_route()}; verts per garment "
+            f"{min(n_verts)}-{max(n_verts)}")
+        log(f"predict CLI ms of each batch (encode: CUDA events around the "
+            f"encode; the rest host clock): {per_batch}")
+
+        # the same run without the [N, bins*3] logits, the largest array a
+        # garment writes: how much of the time the writer takes
+        cfg["prediction"]["store_pred_nocs_logits"] = False
+        _build.reset_launch_counts()
+        run = predict.main(cfg, run_dir=str(tmp / "run_nologits"))
+        check(dict(_build.LAUNCHES) == launches,
+              f"launch counts without logits: {_build.LAUNCHES}")
+        summary = json.loads((run / "summary.json").read_text())
+        recs = [json.loads(x) for x in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        per_batch = "; ".join(
+            f"{k[:-3]} " + ", ".join(f"{r[k]:.1f}" for r in recs)
+            for k in CLI_STAGES)
+        log(f"predict CLI with prediction.store_pred_nocs_logits=false: "
+            f"{summary['garments_per_sec']:.3f} garments/s; ms of each "
+            f"batch: {per_batch}")
+    return launches
+
+
 def small_cfg():
     """A tiny pipeline configuration for checks of the card against the
     CPU."""
@@ -864,17 +1018,21 @@ def main() -> int:
 
     rows = phase_kernels(dev)
     launches = phase_main_path(dev)
+    launches["cli"] = phase_predict_cli(dev)
     phase_serve(dev)
     phase_small_reference(dev)
 
-    # the decode rows count their tier's run; the other kernels both runs
+    # launches over the driven paths: the main path at 'high' and the
+    # predict CLI (also at 'high') for the 'high' decode row, the main
+    # path's 'highest' batch for the 'highest' row, all three for the rest
     for k, row in rows.items():
         if k == "dense_decode_tc":
-            row["launches"] = launches["high"][k]
+            row["launches"] = launches["high"][k] + launches["cli"][k]
         elif k == "dense_decode_tc_highest":
             row["launches"] = launches["highest"]["dense_decode_tc"]
         else:
-            row["launches"] = launches["high"][k] + launches["highest"][k]
+            row["launches"] = (launches["high"][k] + launches["highest"][k]
+                               + launches["cli"][k])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -1,5 +1,6 @@
 """YAML configs with dotted CLI overrides (the port's copy of what its CLIs
-need from garmentnets_tpu/core/config.py: load_config and parse_cli).
+need from garmentnets_tpu/core/config.py: load_config, parse_cli,
+make_run_dir and dump_config).
 
 Configs are read from the repository's configs/ directory. `yaml` is
 imported when a config is loaded, so the rest of the port does not need
@@ -7,6 +8,8 @@ pyyaml.
 """
 from __future__ import annotations
 
+import copy
+import datetime
 import pathlib
 from typing import Optional, Sequence
 
@@ -51,3 +54,42 @@ def load_config(name: str, overrides: Optional[Sequence[str]] = None,
 def parse_cli(argv: Sequence[str]) -> list:
     """All arguments of the form key=value are overrides."""
     return [a for a in argv if "=" in a and not a.startswith("-")]
+
+
+def make_run_dir(base: str = "outputs",
+                 run_dir: Optional[str] = None) -> pathlib.Path:
+    """`run_dir`, or a new timestamped directory base/YYYY-MM-DD/HH-MM-SS
+    (with a -1, -2, ... suffix when that one exists); created."""
+    if run_dir is not None:
+        out = pathlib.Path(run_dir).expanduser()
+    else:
+        now = datetime.datetime.now()
+        out = (pathlib.Path(base) / now.strftime("%Y-%m-%d")
+               / now.strftime("%H-%M-%S"))
+        i = 0
+        while out.exists():
+            i += 1
+            out = out.parent / f"{now.strftime('%H-%M-%S')}-{i}"
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def _to_container(v):
+    if isinstance(v, dict):
+        return {k: _to_container(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_to_container(x) for x in v]
+    return v
+
+
+def dump_config(cfg: dict, run_dir, extra: Optional[dict] = None,
+                name: str = "config.yaml") -> dict:
+    """Write the resolved config snapshot {'config': ..., 'output_dir':
+    ..., **extra} to run_dir/name (the eval CLI reads predict's)."""
+    payload = {"config": _to_container(copy.deepcopy(dict(cfg))),
+               "output_dir": str(run_dir)}
+    if extra:
+        payload.update(extra)
+    with (pathlib.Path(run_dir) / name).open("w") as f:
+        _yaml().dump(payload, f, default_flow_style=False)
+    return payload

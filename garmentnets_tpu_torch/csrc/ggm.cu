@@ -22,15 +22,21 @@
 // read once from device memory (plus 2r halo rows and 2r halo planes per
 // block, mostly from L2), each input plane of (kTH + 2r) rows as float4
 // with clamped (edge-replicated) row and column indices; W borders need no
-// halo loads because a row is whole. Each thread owns two float4 positions
-// of the plane and keeps their last 2r + 1 planes in registers (a sliding
+// halo loads because a row is whole. The radius r = 1..8 is a template
+// parameter (scipy's int(4 sigma + 0.5), so sigma < 2.125): this source
+// builds radii 1..4 by default and radii 5..8 with -DGGM_WIDE_RADII (a
+// second library, built on first use, so that the common radii build as
+// fast as they would alone). Each thread owns two float4 positions of the
+// plane (three when r > 4, so that the 8 + 2r rows fit) and keeps their
+// last 2r + 1 planes in registers (a sliding
 // window, unrolled by 2r + 1 so every window slot is a fixed register), so
 // the D pass (k1 and k0 variants) reads no shared memory; its results go to
 // shared memory once. The H pass gives each thread one column and a run of
 // four rows, read once with their 2r halo rows; its three variants go to
-// shared memory once, with r edge copies at both ends of a row. The W pass
-// gives each thread four consecutive outputs of a row, read as three float4
-// per variant, and stores the magnitude as one float4. Two barriers a
+// shared memory once, with r edge copies at both ends of a row (in a pad
+// of 4 columns, 8 when r > 4). The W pass gives each thread four
+// consecutive outputs of a row, read as three float4 per variant (five
+// when r > 4), and stores the magnitude as one float4. Two barriers a
 // plane; the next plane's loads are issued before the current plane's
 // arithmetic. Tile sizes are compile-time constants: no div/mod in a loop.
 
@@ -41,8 +47,15 @@ namespace {
 
 constexpr int kTH = 8;       // output rows per block
 constexpr int kTD = 32;      // output planes per block
-constexpr int kMaxR = 4;
-constexpr int kPad = 4;      // shared-memory columns before column 0
+#ifdef GGM_WIDE_RADII
+constexpr int kMinR = 5, kMaxR = 8;
+#else
+constexpr int kMinR = 1, kMaxR = 4;
+#endif
+
+// shared-memory columns before column 0 (and after column W - 1): the
+// radius rounded up to a whole float4
+__host__ __device__ constexpr int pad_of(int r) { return (r + 3) / 4 * 4; }
 
 struct Taps {
   float k0[2 * kMaxR + 1];
@@ -75,8 +88,10 @@ ggm_kernel(const float* __restrict__ vol, int D, int H, int W, Taps taps,
   constexpr int T = 2 * R + 1;
   constexpr int kHR = kTH + 2 * R;          // input rows of a plane
   constexpr int kU = TW / 4;                // float4 units per row
-  constexpr int kSlots = 2;                 // D-pass rows a thread (8 a pass)
+  constexpr int kSlots = (kHR + 7) / 8;     // D-pass rows a thread (8 a pass)
+  constexpr int kPad = pad_of(R);
   constexpr int kStride = TW + 2 * kPad;    // H-pass row, floats
+  constexpr int kWX = 4 + 2 * kPad;         // W-pass inputs of four outputs
   static_assert(kHR <= 8 * kSlots, "halo rows exceed the D-pass slots");
 
   extern __shared__ __align__(16) float smem[];
@@ -95,7 +110,7 @@ ggm_kernel(const float* __restrict__ vol, int D, int H, int W, Taps taps,
 
   // D pass: this thread's columns and (up to) two halo rows of the plane
   const int dc = (t % kU) * 4;
-  const int dr = t / kU;                    // 0..7, then + 8
+  const int dr = t / kU;                    // 0..7, then + 8, + 16
   int roff[kSlots];
   bool rlive[kSlots];
 #pragma unroll
@@ -193,13 +208,13 @@ ggm_kernel(const float* __restrict__ vol, int D, int H, int W, Taps taps,
       }
       __syncthreads();
 
-      // ---- W pass and magnitude: four outputs from three float4 reads ----
+      // ---- W pass and magnitude: four outputs from kWX / 4 float4 reads --
       if (w_live) {
-        float x[3][12];
+        float x[3][kWX];
 #pragma unroll
         for (int q = 0; q < 3; ++q)
 #pragma unroll
-          for (int u = 0; u < 3; ++u) {
+          for (int u = 0; u < kWX / 4; ++u) {
             const float4 f =
                 *reinterpret_cast<const float4*>(&hp[q][wr][wc + 4 * u]);
             x[q][4 * u] = f.x;
@@ -241,7 +256,7 @@ template <int R, int TW>
 int launch(const float* vol, int B, int D, int H, int W, const Taps& taps,
            float* out, cudaStream_t stream) {
   constexpr int smem =
-      4 * (2 * (kTH + 2 * R) * TW + 3 * kTH * (TW + 2 * kPad));
+      4 * (2 * (kTH + 2 * R) * TW + 3 * kTH * (TW + 2 * pad_of(R)));
   cudaError_t err = cudaFuncSetAttribute(
       ggm_kernel<R, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -254,10 +269,17 @@ template <int TW>
 int launch_r(int radius, const float* vol, int B, int D, int H, int W,
              const Taps& taps, float* out, cudaStream_t s) {
   switch (radius) {
+#ifdef GGM_WIDE_RADII
+    case 5: return launch<5, TW>(vol, B, D, H, W, taps, out, s);
+    case 6: return launch<6, TW>(vol, B, D, H, W, taps, out, s);
+    case 7: return launch<7, TW>(vol, B, D, H, W, taps, out, s);
+    default: return launch<8, TW>(vol, B, D, H, W, taps, out, s);
+#else
     case 1: return launch<1, TW>(vol, B, D, H, W, taps, out, s);
     case 2: return launch<2, TW>(vol, B, D, H, W, taps, out, s);
     case 3: return launch<3, TW>(vol, B, D, H, W, taps, out, s);
     default: return launch<4, TW>(vol, B, D, H, W, taps, out, s);
+#endif
   }
 }
 
@@ -266,7 +288,7 @@ int launch_r(int radius, const float* vol, int B, int D, int H, int W,
 extern "C" int ggm_launch(const float* vol, int B, int D, int H, int W,
                           const float* k0, const float* k1, int radius,
                           float* out, void* stream) {
-  if (radius < 1 || radius > kMaxR || B < 1 || B > 65535 || D < 1 ||
+  if (radius < kMinR || radius > kMaxR || B < 1 || B > 65535 || D < 1 ||
       H < 1 || W < 1 || W > 256 || (H + kTH - 1) / kTH > 65535 ||
       (D + kTD - 1) / kTD > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

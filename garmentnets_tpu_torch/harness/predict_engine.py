@@ -10,9 +10,12 @@ Per batch:
   warp: surface decoder at the mesh vertices plus the ggm gather at each
       vertex's nearest voxel.
 
-Queries and results stay float32 (the JAX engine's f16 wire format was a
-measure for its device link). Entry points run on the card unless the
-caller passes device="cpu".
+The warp's query points are the mesh vertices rounded to float16, as the
+JAX engine's are (its f16 wire format): the nearest-voxel ggm gather
+floors q * (S - 1), and a vertex on a lattice plane floors to one side or
+the other with the last bit of q, so only the same rounding gives the JAX
+engine's values (a 0.03-voxel move at 128^3). Results stay float32. Entry
+points run on the card unless the caller passes device="cpu".
 
 Nothing on the host waits for the whole stream: inputs go up through
 pinned staging copies, `prefetch` copies a batch's brick pages and NOCS
@@ -24,7 +27,9 @@ and events are skipped on the same code path.
 """
 from __future__ import annotations
 
+import atexit
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -44,6 +49,72 @@ from garmentnets_tpu_torch.ops.isosurface import (
     split_brick_payload, unpack_brick_pages)
 from garmentnets_tpu_torch.ops.marching_cubes import (
     marching_cubes, marching_cubes_bricks)
+
+
+_MC_POOLS: dict = {}
+_MC_POOLS_LOCK = threading.Lock()
+
+
+def shared_mc_pool(threads: int) -> Optional[ThreadPoolExecutor]:
+    """The process-wide marching-cubes pool of `threads` workers (None for
+    one thread): one pool per width for the life of the process, shut down
+    at exit, so building engine after engine adds no threads. The C++
+    marching-cubes library is loaded before the first pool exists, so no
+    worker races its build."""
+    if threads <= 1:
+        return None
+    pool = _MC_POOLS.get(threads)
+    if pool is None:
+        with _MC_POOLS_LOCK:
+            pool = _MC_POOLS.get(threads)
+            if pool is None:
+                from garmentnets_tpu_torch.ops.marching_cubes import _lib
+                _lib()
+                pool = ThreadPoolExecutor(threads, thread_name_prefix="mc")
+                atexit.register(pool.shutdown, wait=False)
+                _MC_POOLS[threads] = pool
+    return pool
+
+
+def check_card_limits(cfg: PipelineConfig, volume_size: int,
+                      gradient_sigma: float, num_points: Optional[int] = None,
+                      points_key: str = "datamodule.num_pc_sample") -> None:
+    """Refuse, naming the config key, what the card's kernels cannot run:
+    a volume wider than the ggm kernel's rows, a gaussian radius beyond its
+    taps, more points than the FPS kernel holds, and volume-decoder widths,
+    depth or head that the dense decode kernel does not take. Runs on the
+    CPU too; the engine calls it for a card device, with the point count
+    its caller gives."""
+    from garmentnets_tpu_torch.kernels import dense_decode_tc, fps, ggm
+    from garmentnets_tpu_torch.ops.gaussian import ggm_radius
+    errors = []
+    if volume_size > ggm.MAX_WIDTH:
+        errors.append(f"prediction.volume_size={volume_size}: the ggm "
+                      f"kernel takes volumes up to {ggm.MAX_WIDTH} wide")
+    radius = ggm_radius(gradient_sigma)
+    if not 1 <= radius <= ggm.MAX_RADIUS:
+        errors.append(f"prediction.gradient_sigma={gradient_sigma}: gaussian "
+                      f"radius {radius}, the ggm kernel takes 1 to "
+                      f"{ggm.MAX_RADIUS} (sigma below "
+                      f"{(ggm.MAX_RADIUS + 0.5) / 4})")
+    if num_points is not None and not 1 <= num_points <= fps.MAX_POINTS:
+        errors.append(f"{points_key}={num_points}: the FPS kernel takes 1 "
+                      f"to {fps.MAX_POINTS} points")
+    ch = list(cfg.volume_decoder_channels)
+    key = f"volume_decoder_params.nn_channels={ch} (checkpoint hparams)"
+    if ch[-1] != 1:
+        errors.append(f"{key}: the dense decode kernel has a scalar head "
+                      f"only, got {ch[-1]} outputs")
+    if len(ch) - 3 > dense_decode_tc.MAX_MID:
+        errors.append(f"{key}: the dense decode kernel takes up to "
+                      f"{dense_decode_tc.MAX_MID} hidden layers, got "
+                      f"{len(ch) - 3}")
+    if max(ch[1:-1], default=0) > dense_decode_tc.WIDTHS[-1]:
+        errors.append(f"{key}: the dense decode kernel takes widths up to "
+                      f"{dense_decode_tc.WIDTHS[-1]}")
+    if errors:
+        raise ValueError("the CUDA kernels cannot run this configuration: "
+                         + "; ".join(errors))
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -73,13 +144,19 @@ class PredictEngine:
                  decode_precision: str = "high",
                  return_volume: bool = False,
                  mc_threads: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", num_points: Optional[int] = None,
+                 points_key: str = "datamodule.num_pc_sample"):
         """state_dict: the pipeline's weights in the reference layout (see
         core/weights.py). decode_precision: the dense decode's tier, 'high'
         (bf16x3, the JAX engine's default), 'default' (bf16) or 'highest'
-        (f32), case-insensitive."""
+        (f32), case-insensitive. num_points: the caller's points a cloud,
+        checked on a card device against the FPS kernel under the config
+        key `points_key`."""
         self.decode_precision = check_precision(decode_precision)
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_card_limits(cfg, volume_size, gradient_sigma,
+                              num_points=num_points, points_key=points_key)
         self.cfg = cfg
         self.model = ConvImplicitWNFPipeline(cfg)
         self.model.to(self.device).eval()
@@ -99,8 +176,7 @@ class PredictEngine:
         self.load_state_dict(state_dict)
         if mc_threads is None:
             mc_threads = min(4, os.cpu_count() or 1)
-        self._pool = (ThreadPoolExecutor(mc_threads, thread_name_prefix="mc")
-                      if mc_threads > 1 else None)
+        self._pool = shared_mc_pool(mc_threads)
 
     def load_state_dict(self, state_dict: dict) -> None:
         """Load new weights (the same architecture), re-fold the volume
@@ -124,10 +200,9 @@ class PredictEngine:
                             self.decode_precision, packed=self._vd_packed)
 
     def close(self) -> None:
-        """Stop the marching-cubes worker threads."""
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-            self._pool = None
+        """Let go of the marching-cubes pool; the pool itself is shared by
+        every engine of the process and stays up."""
+        self._pool = None
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -263,11 +338,11 @@ class PredictEngine:
         vmax = max(sizes) if sizes else 0
         if vmax == 0:
             return (None, None, sizes)
-        q = np.zeros((len(meshes), vmax, 3), np.float32)
+        q = np.zeros((len(meshes), vmax, 3), np.float16)
         for b, m in enumerate(meshes):
             if m is not None:
                 q[b, :len(m[0])] = m[0]
-        q = to_device(q, self.device)
+        q = to_device(q, self.device).float()
         warp = self.model.surface_decoder_forward(enc["feature_volume"], q)
         ggm = enc["wnf_ggm"]
         B, S = ggm.shape[0], self.volume_size

@@ -112,6 +112,7 @@ class PredictService:
         self.batch_window_s = float(batch_window_ms) / 1000.0
         self.engine = PredictEngine(
             cfg, state_dict, volume_size=int(volume_size), device=device,
+            num_points=self.num_points, points_key="server.num_points",
             **(engine_kwargs or {}))
         self._queue: "queue.Queue[_Job]" = queue.Queue()
         self._stop = threading.Event()

@@ -28,6 +28,9 @@ PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
 CSRC_DIR = PKG_DIR / "csrc"
 CUDA_SOURCES = ("fps", "ggm", "sa_tc", "dense_decode_tc")
+# Libraries built from a source above with extra flags, on first use only
+# (build_all leaves them out): the ggm's radii 5..8.
+VARIANTS = {"ggm_wide": ("ggm", ("-DGGM_WIDE_RADII",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
@@ -64,8 +67,9 @@ def _target(name: str) -> tuple:
         src = PKG_DIR / "ops" / "cpp" / "marching.cpp"
         cmd = ["g++", *GXX_FLAGS, str(src)]
     else:
-        src = CSRC_DIR / f"{name}.cu"
-        cmd = [_nvcc(), *NVCC_FLAGS, str(src)]
+        source, extra = VARIANTS.get(name, (name, ()))
+        src = CSRC_DIR / f"{source}.cu"
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, str(src)]
     h = hashlib.sha256(src.read_bytes() + " ".join(cmd[1:]).encode())
     if name != "marching":
         for header in sorted(CSRC_DIR.glob("*.cuh")):

@@ -12,7 +12,8 @@ import torch
 
 from garmentnets_tpu_torch.kernels import _build
 
-MAX_RADIUS = 4
+MAX_RADIUS = 8     # taps' radius: gradient_sigma < 2.125 (csrc/ggm.cu)
+NARROW_RADIUS = 4  # the default library's radii; wider ones build on use
 MAX_WIDTH = 256     # a block holds whole rows of W (csrc/ggm.cu)
 
 
@@ -35,7 +36,8 @@ def ggm_cuda(volume: torch.Tensor, k0: np.ndarray,
     taps1 = (ctypes.c_float * len(k1))(*np.asarray(k1, np.float32).tolist())
     out = torch.empty_like(volume)
     FP = ctypes.POINTER(ctypes.c_float)
-    fn = _build.cuda_fn("ggm", "ggm_launch", [
+    lib = "ggm" if radius <= NARROW_RADIUS else "ggm_wide"
+    fn = _build.cuda_fn(lib, "ggm_launch", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, FP, FP, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p])

@@ -41,10 +41,15 @@ def _gaussian_kernel1d(sigma: float, order: int, radius: int) -> np.ndarray:
     return kernel[::-1].copy()
 
 
+def ggm_radius(sigma: float, truncate: float = 4.0) -> int:
+    """The taps' radius, scipy's int(truncate * sigma + 0.5)."""
+    return int(truncate * sigma + 0.5)
+
+
 def ggm_taps(sigma: float, truncate: float = 4.0):
     """(k0, k1): the gaussian and first-derivative taps of radius
-    int(truncate * sigma + 0.5), float64."""
-    radius = int(truncate * sigma + 0.5)
+    ggm_radius(sigma, truncate), float64."""
+    radius = ggm_radius(sigma, truncate)
     return (_gaussian_kernel1d(sigma, 0, radius),
             _gaussian_kernel1d(sigma, 1, radius))
 

@@ -3,10 +3,12 @@
 align_corners=True (query q in [0, 1] maps to voxel coordinate q*(size-1)),
 border padding (the sample position is clamped to the volume), query axis 0
 indexing the volume's depth axis, and the JAX package's lerp order
-(W first, then H, then D).
+(W first, then H, then D). `grid_sample_trilinear_np` is the numpy twin
+the dataset samples its ground-truth volumes with.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from garmentnets_tpu_torch.core.device import to_device
@@ -40,3 +42,31 @@ def grid_sample_trilinear(volume: torch.Tensor,
     c0 = c00 * (1 - fy) + c01 * fy
     c1 = c10 * (1 - fy) + c11 * fy
     return c0 * (1 - fx) + c1 * fx
+
+
+def grid_sample_trilinear_np(volume, query):
+    """Numpy twin of grid_sample_trilinear for host-side dataset sampling
+    (a copy of the JAX package's; the reference calls torch
+    nocs_grid_sample on CPU in the data loader,
+    datasets/conv_implicit_wnf_dataset.py:268-272).
+
+    volume: (D,H,W) or (D,H,W,C); query: (M,3) in [0,1] -> (M,) or (M,C).
+    """
+    squeeze_c = volume.ndim == 3
+    if squeeze_c:
+        volume = volume[..., None]
+    D, H, W, C = volume.shape
+    dims = np.asarray([D - 1, H - 1, W - 1], volume.dtype)
+    q = np.clip(query.astype(volume.dtype) * dims, 0, dims)
+    lo = np.floor(q).astype(np.int64)
+    hi = np.minimum(lo + 1, dims.astype(np.int64))
+    f = (q - lo).astype(volume.dtype)
+    out = np.zeros((len(query), C), volume.dtype)
+    for dx, wx in ((0, 1 - f[:, 0]), (1, f[:, 0])):
+        ix = lo[:, 0] if dx == 0 else hi[:, 0]
+        for dy, wy in ((0, 1 - f[:, 1]), (1, f[:, 1])):
+            iy = lo[:, 1] if dy == 0 else hi[:, 1]
+            for dz, wz in ((0, 1 - f[:, 2]), (1, f[:, 2])):
+                iz = lo[:, 2] if dz == 0 else hi[:, 2]
+                out += (wx * wy * wz)[:, None] * volume[ix, iy, iz]
+    return out[:, 0] if squeeze_c else out

@@ -2,8 +2,10 @@
 
 - `furthest_point_sampling`: the hand-written CUDA kernel (kernels/fps.py)
   for a CUDA tensor, the plain version below for a CPU tensor.
-- `ball_query`: the K nearest points within a radius, with an exact f32
-  recheck of the chosen candidates.
+- `ball_query`: the K nearest points within a radius, chosen exactly: a
+  candidate set from the expanded-quadratic distances is re-ranked on
+  exact f32 differences, ties going to the lower index, so the card and
+  the CPU choose the same neighbours.
 - `knn_interpolate`: inverse-squared-distance kNN interpolation.
 
 Dense `[B, N, C]` batches with fixed point counts, as in the JAX package.
@@ -75,28 +77,49 @@ def _sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # ball query (fixed-K nearest-within-radius)
 # ---------------------------------------------------------------------------
+def _exact_sq_dists(nbr: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """nbr [B, M, K, 3], c [B, M, 3] -> |nbr - c|^2 [B, M, K] as
+    dx*dx + dy*dy + dz*dz, each operation rounded on its own (the same bits
+    on the card and the CPU)."""
+    diff = nbr - c[:, :, None, :]
+    dx, dy, dz = diff.unbind(-1)
+    return dx * dx + dy * dy + dz * dz
+
+
 def ball_query(points: torch.Tensor, centers: torch.Tensor, radius: float,
                k: int = 64, chunk: int = 512):
     """K nearest neighbors of each center within `radius`.
 
     points [B, N, 3], centers [B, M, 3] -> (idx [B, M, K] int64,
-    mask [B, M, K] bool). Candidates come from an exact top-k of the
-    expanded-quadratic distances, built in M-chunks to bound memory; the
-    mask rechecks each chosen candidate's distance exactly in f32."""
+    mask [B, M, K] bool), slots in order of distance. The 2K nearest
+    candidates under the expanded-quadratic distances, built in M-chunks
+    to bound memory, are re-ranked by their exact f32 distance, ties to
+    the lower index, as one int64 key (the distance's bits above the
+    index); the mask checks that distance against the radius. The choice
+    is exact unless more than K points lie within the expanded quadratic's
+    rounding (~1e-7 relative) of the K-th distance; the cuBLAS and CPU
+    products round differently, and torch.topk breaks exact ties in its
+    own order on each device, so without the re-rank a tie at the K-th
+    slot could pick another neighbour on the card."""
     N = points.shape[1]
     r2 = float(np.float32(radius) ** 2)         # the radius squared in f32
+    kk = min(k, N)
+    kc = min(2 * k, N)
     idx_out, mask_out = [], []
     for c in torch.split(centers, chunk, dim=1):
         d2 = _sq_dists(c, points)                                 # [B,c,N]
-        _, idx = torch.topk(d2, min(k, N), dim=-1, largest=False)
+        _, cand = torch.topk(d2, kc, dim=-1, largest=False)
+        d2c = _exact_sq_dists(gather_rows(points, cand), c)       # [B,c,kc]
+        key = (d2c.view(torch.int32).to(torch.int64) << 32) | cand
+        key = torch.topk(key, kk, dim=-1, largest=False).values
+        idx = key & 0xFFFFFFFF
+        d2k = (key >> 32).to(torch.int32).view(torch.float32)
         if k > N:
-            idx = torch.cat([idx, idx[..., :1].expand(*idx.shape[:-1],
-                                                      k - N)], dim=-1)
-        nbr = gather_rows(points, idx)                            # [B,c,K,3]
-        diff = nbr - c[:, :, None, :]
-        d2_exact = (diff * diff).sum(-1)
+            pad = (*idx.shape[:-1], k - N)
+            idx = torch.cat([idx, idx[..., :1].expand(pad)], dim=-1)
+            d2k = torch.cat([d2k, d2k[..., :1].expand(pad)], dim=-1)
         idx_out.append(idx)
-        mask_out.append(d2_exact <= r2)
+        mask_out.append(d2k <= r2)
     return torch.cat(idx_out, dim=1), torch.cat(mask_out, dim=1)
 
 

@@ -73,6 +73,52 @@ def test_ggm_kernel_matches_plain(dev, shape, sigma):
     assert torch.equal(out, ggm_plain(vol, sigma))
 
 
+@pytest.mark.parametrize("shape,sigma", [
+    ((2, 37, 37, 37), 1.25), ((2, 37, 37, 37), 1.5),
+    ((2, 37, 37, 37), 1.75), ((2, 37, 37, 37), 2.0),
+    ((1, 9, 12, 200), 1.25), ((1, 9, 12, 200), 2.0),
+    ((8, 128, 128, 128), 2.0)])
+def test_ggm_kernel_matches_plain_wide_radius(dev, shape, sigma):
+    """Radius 5 to 8 (gradient_sigma 1.25 to 2.0): three D-pass rows a
+    thread and an 8-column pad, bit for bit, both row instances and the
+    main path's shape."""
+    from garmentnets_tpu_torch.kernels.ggm import ggm_cuda
+    vol = _rand(torch.Generator().manual_seed(2), *shape).to(dev)
+    k0, k1 = ggm_taps(sigma)
+    assert len(k0) == 2 * int(4 * sigma + 0.5) + 1
+    out = ggm_cuda(vol, k0, k1)
+    assert torch.equal(out, ggm_plain(vol, sigma))
+
+
+@pytest.mark.parametrize("kind", ["random", "lattice", "duplicates",
+                                  "near_lattice"])
+@pytest.mark.parametrize("B,N,M,radius", [(8, 6000, 3000, 0.35),
+                                          (8, 3000, 750, 0.4)])
+def test_ball_query_card_sets_equal_cpu(dev, kind, B, N, M, radius):
+    """The neighbour sets (and the slots) that ball_query chooses on the
+    card equal the CPU's at the main path's shapes, on data with exact
+    ties at the 64th neighbour (a lattice of step 1/8, where 24 points
+    share the shell that holds it; every point two or three times) and
+    with near-ties (that lattice moved by ~1e-6), where the card's cuBLAS
+    cross term rounds otherwise than the CPU's."""
+    import numpy as np
+    from garmentnets_tpu_torch.core.device import full_f32
+    from garmentnets_tpu_torch.ops.pointcloud import ball_query
+    pts = chip_smoke.fps_points("lattice" if kind == "near_lattice"
+                                else kind, B, N, N)
+    if kind == "near_lattice":
+        pts = pts + np.random.RandomState(4).randn(*pts.shape).astype(
+            np.float32) * np.float32(1e-6)
+    pts = torch.from_numpy(pts)
+    ctr = pts[:, :M].contiguous()
+    with full_f32():
+        gi, gm = ball_query(pts.to(dev), ctr.to(dev), radius, k=64)
+    ci, cm = ball_query(pts, ctr, radius, k=64)
+    gi, gm = gi.cpu(), gm.cpu()
+    assert torch.equal(gm.sum(-1), cm.sum(-1))
+    assert torch.equal(gi, ci) and torch.equal(gm, cm)
+
+
 @pytest.mark.parametrize("coarse,S,widths", [
     ((8, 8, 8), 32, (128, 256, 256, 1)),      # NP 256, 64-row tiles
     ((5, 6, 7), 20, (16, 40, 24, 1)),         # NP 64

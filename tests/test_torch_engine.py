@@ -249,3 +249,82 @@ def test_engine_tier_matches_jax_engine_at_tier(precision):
            else dict(rtol=0, atol=3e-2))
     np.testing.assert_allclose(ours, ref, **tol)
     teng.close()
+
+
+def test_engines_share_one_mc_pool(engines):
+    """Ten engines built, run and closed in a loop leave the thread count
+    bounded: every engine of a width takes the process-wide pool, and
+    close() leaves it up."""
+    import threading
+    from garmentnets_tpu_torch.harness import predict_engine
+    sd = engines[1].model.state_dict()
+    S = pu.VOL
+    ax = np.linspace(0, 1, S, dtype=np.float32)
+    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1)
+    wnf = (1.0 - np.linalg.norm(g - 0.5, axis=-1) / 0.6).astype(np.float32)
+    from garmentnets_tpu_torch.ops.isosurface import (
+        extract_active_bricks, pack_brick_pages)
+    start = threading.active_count()
+    for i in range(10):
+        eng = PredictEngine(pu.torch_cfg(), sd, volume_size=S, mc_threads=3,
+                            decode_precision="highest", device="cpu")
+        wnf_t = torch.from_numpy(np.stack([wnf] * 4))
+        b, v, c = extract_active_bricks(wnf_t, 0.5, eng.brick_cap)
+        meshes = eng.extract_meshes(
+            {"active_pages": pack_brick_pages(b, v, eng.brick_page,
+                                              counts=c)})
+        assert all(m is not None for m in meshes)
+        assert eng._pool is predict_engine.shared_mc_pool(3)
+        eng.close()
+    # at most the one pool of width 3 came up, whatever ran before
+    assert threading.active_count() <= start + 3
+    assert not predict_engine.shared_mc_pool(3)._shutdown
+    assert predict_engine.shared_mc_pool(1) is None
+
+
+def _limit_cfg(**kw):
+    import dataclasses
+    return dataclasses.replace(pu.torch_cfg(), **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(volume_size=264), r"prediction.volume_size=264: the ggm kernel"),
+    (dict(gradient_sigma=2.2), r"prediction.gradient_sigma=2.2: gaussian "
+                               r"radius 9"),
+    (dict(num_points=14465), r"datamodule.num_pc_sample=14465"),
+    (dict(num_points=14465, points_key="server.num_points"),
+     r"server.num_points=14465"),
+    (dict(cfg=_limit_cfg(volume_decoder_channels=(32, 300, 1))),
+     r"volume_decoder_params.nn_channels=\[32, 300, 1\].*widths up to 256"),
+    (dict(cfg=_limit_cfg(volume_decoder_channels=(32,) + (16,) * 10 + (1,))),
+     r"up to 8 hidden layers, got 9"),
+    (dict(cfg=_limit_cfg(volume_decoder_channels=(32, 16, 3))),
+     r"scalar head only, got 3 outputs"),
+])
+def test_card_limits_refused_with_the_config_key(kw, match):
+    from garmentnets_tpu_torch.harness.predict_engine import (
+        check_card_limits)
+    args = dict(cfg=pu.torch_cfg(), volume_size=128, gradient_sigma=0.5)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        check_card_limits(**args)
+
+
+def test_card_limits_pass_at_their_edges():
+    from garmentnets_tpu_torch.harness.predict_engine import (
+        check_card_limits)
+    from garmentnets_tpu_torch.kernels.fps import MAX_POINTS
+    check_card_limits(_limit_cfg(volume_decoder_channels=(32,) + (256,) * 9
+                                 + (1,)), 256, 2.0, num_points=MAX_POINTS)
+
+
+def test_engine_on_a_card_checks_limits_at_construction(engines,
+                                                        monkeypatch):
+    """The engine runs the check for a card device before it moves any
+    weight there (the device is faked: the check runs on the CPU)."""
+    from garmentnets_tpu_torch.harness import predict_engine
+    monkeypatch.setattr(predict_engine, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    with pytest.raises(ValueError, match="prediction.gradient_sigma=2.2"):
+        PredictEngine(pu.torch_cfg(), engines[1].model.state_dict(),
+                      volume_size=pu.VOL, gradient_sigma=2.2, device="cuda")

@@ -63,7 +63,7 @@ def test_ggm_launcher_refuses_cpu_tensor():
         ggm_cuda(torch.zeros(1, 8, 8, 8), k0, k1)
 
 
-TH, TD, PAD = 8, 32, 4          # csrc/ggm.cu kTH, kTD, kPad
+TH, TD = 8, 32                  # csrc/ggm.cu kTH, kTD
 
 
 def _ggm_schedule(vol: np.ndarray, sigma: float) -> np.ndarray:
@@ -81,6 +81,7 @@ def _ggm_schedule(vol: np.ndarray, sigma: float) -> np.ndarray:
     k0, k1 = (np.asarray(t, np.float32) for t in ggm_taps(sigma))
     R = (len(k0) - 1) // 2
     T = 2 * R + 1
+    PAD = (R + 3) // 4 * 4      # csrc/ggm.cu pad_of(R)
     B, D, H, W = vol.shape
     TW = 128 if W <= 128 else 256
     cols = np.minimum(np.arange(TW), W - 1)
@@ -153,6 +154,20 @@ def test_ggm_kernel_schedule_equals_plain(S, sigma, B):
     planes)."""
     vol = np.random.RandomState(S).rand(B, S, S, S).astype(np.float32)
     _check_schedule(vol, sigma)
+
+
+@pytest.mark.parametrize("sigma", [1.25, 1.5, 1.75, 2.0])   # radius 5..8
+def test_ggm_kernel_schedule_equals_plain_wide_radius(sigma):
+    """Radius 5 to 8: three D-pass rows a thread and an 8-column pad."""
+    vol = np.random.RandomState(5).rand(2, 21, 19, 35).astype(np.float32)
+    _check_schedule(vol, sigma)
+
+
+def test_ggm_launcher_refuses_radius_above_its_taps():
+    from garmentnets_tpu_torch.kernels.ggm import MAX_RADIUS
+    k0, k1 = ggm_taps((MAX_RADIUS + 0.5) / 4)      # radius MAX_RADIUS + 1
+    with pytest.raises(ValueError, match="radius"):
+        ggm_cuda(torch.zeros(1, 8, 8, 8), k0, k1)
 
 
 @pytest.mark.parametrize("shape", [(2, 33, 7, 20), (1, 5, 9, 130),

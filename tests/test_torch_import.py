@@ -31,14 +31,17 @@ assert set(EXPECTED) <= set(mods), sorted(set(EXPECTED) - set(mods))
 print(len(mods))
 """
 
-# modules of the predict and serve slices that must be among them
+# modules of the predict, serve and predict-CLI slices that must be among
+# them
 EXPECTED = [
     "garmentnets_tpu_torch." + m for m in (
-        "harness.predict_engine", "harness.serve", "core.builders",
-        "core.checkpoint", "core.config", "core.device", "core.weights",
-        "kernels.sa_tc", "kernels.fps", "kernels.ggm",
-        "kernels.dense_decode_tc",
-        "ops.set_abstraction", "models.pointnet2")]
+        "harness.predict_engine", "harness.serve", "harness.predict",
+        "core.builders", "core.checkpoint", "core.config", "core.device",
+        "core.weights", "core.logging", "kernels.sa_tc", "kernels.fps",
+        "kernels.ggm", "kernels.dense_decode_tc",
+        "ops.set_abstraction", "ops.geometry", "models.pointnet2",
+        "data.blosc_codec", "data.zarrlite", "data.dataset",
+        "data.synthetic", "utils.cache")]
 
 
 def _env():
@@ -52,7 +55,7 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", f"EXPECTED = {EXPECTED!r}\n" + _BLOCKED_IMPORT],
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 26
+    assert int(out.stdout.strip().splitlines()[-1]) >= 47
 
 
 def test_port_sources_name_no_jax_import():

@@ -98,3 +98,40 @@ def test_virtual_grid_matches_jax(G):
     np.testing.assert_array_equal(tg.flatten_idxs(tidx).numpy(),
                                   np.asarray(jg.flatten_idxs(
                                       jnp.asarray(jidx))))
+
+
+def _ball_query_reference(pts, ctr, radius, k):
+    """The K nearest by exact f32 distance (dx*dx + dy*dy + dz*dz), ties to
+    the lower index, by a full sort in numpy."""
+    B, M = ctr.shape[:2]
+    idx = np.zeros((B, M, k), np.int64)
+    mask = np.zeros((B, M, k), bool)
+    r2 = np.float32(radius) ** 2
+    for b in range(B):
+        for m in range(M):
+            d = pts[b] - ctr[b, m]
+            d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+            order = np.lexsort((np.arange(len(d2)), d2))[:k]
+            idx[b, m] = order
+            mask[b, m] = d2[order] <= r2
+    return idx, mask
+
+
+@pytest.mark.parametrize("kind", ["lattice", "duplicates", "near_lattice"])
+def test_ball_query_exact_on_ties(kind):
+    """Exact ties at the K-th neighbour (a lattice's distance shells,
+    points given two or three times) and near-ties (a lattice moved by
+    ~1e-6): the chosen slots are the exact K nearest, ties to the lower
+    index, in that order."""
+    import chip_smoke
+    kind_pts = "lattice" if kind == "near_lattice" else kind
+    pts = chip_smoke.fps_points(kind_pts, 2, 1000, 3)
+    if kind == "near_lattice":
+        pts = pts + np.random.RandomState(4).randn(*pts.shape).astype(
+            np.float32) * np.float32(1e-6)
+    ctr = np.ascontiguousarray(pts[:, ::9])
+    idx, mask = tpc.ball_query(torch.from_numpy(pts), torch.from_numpy(ctr),
+                               0.35, k=64, chunk=40)
+    ridx, rmask = _ball_query_reference(pts, ctr, 0.35, 64)
+    np.testing.assert_array_equal(idx.numpy(), ridx)
+    np.testing.assert_array_equal(mask.numpy(), rmask)

@@ -404,3 +404,17 @@ def test_cli_config_and_precision(ckpts, monkeypatch):
         ov + ["prediction.decode_precision=bogus"]))
     with pytest.raises(ValueError, match="decode_precision must be one of"):
         serve.main(bogus)
+
+
+def test_service_checks_card_limits_at_start_up(ckpts, monkeypatch):
+    """On a card device the service refuses a point count the FPS kernel
+    does not hold, naming server.num_points (the device is faked: the
+    check runs on the CPU before anything moves to it)."""
+    import torch
+    from garmentnets_tpu_torch.harness import predict_engine
+    monkeypatch.setattr(predict_engine, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    with pytest.raises(ValueError, match="server.num_points=20000"):
+        serve.PredictService(ckpts["main"][1], batch_size=BATCH,
+                             num_points=20000, volume_size=pu.VOL,
+                             device="cuda")
