@@ -27,20 +27,34 @@ Needs one CUDA card; exits non-zero without one. Phases, each fatal:
      written by save_pipeline_checkpoint: every sample group's schema,
      meshes and warp values, launch counts per batch, garments/s and each
      batch's stage times, and the zarr codec;
-  6. the server: PredictService + make_http_server at the same width on a
+  6. the eval CLI (harness/eval.py) on that prediction.zarr, as a
+     subprocess as a user runs it (configs/eval_default.yaml as shipped,
+     num_workers=-1), then again with vis.samples_per_instance=1: its
+     parallel mode, seconds per metric function, garments per second, null
+     count, summary keys, finite metrics and PLY count;
+  7. the model variants: predict.main at full width on one batch of 8
+     each, for the mc-surface (hole) head with use_hole_prediction (and
+     both aggregator include flags off) and for the task-space model over
+     a dataset with task-space volumes, with launch counts per batch; then
+     the eval CLI on each, the hole run with its logits as the value key
+     and the grip-point, Hausdorff and geodesic metrics on;
+  8. the server: PredictService + make_http_server at the same width on a
      checkpoint written by save_pipeline_checkpoint, 24 garments from 4
      concurrent clients through predict_remote, with launch counts per
      device batch, the overlap of host MC with the next encode, and one
      request against a direct engine run; then the engine at a tiny size
      on the card against the CPU path at 'highest' and 'high';
-  7. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
+  9. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
 """
 from __future__ import annotations
 
 import json
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -607,7 +621,7 @@ def normalized_batch(*requests):
     return bx, bp
 
 
-def live_head_(model, x, pos, dev, share=0.01) -> None:
+def live_head_(model, x, pos, dev, share=0.01, **engine_kw) -> None:
     """Make the random network's WNF cross the iso level 0.5 on about
     `share` of the voxels: the volume decoder's head becomes relu(z + b)
     (its BatchNorm the identity), z is read once with b = 100 (so the ReLU
@@ -623,7 +637,7 @@ def live_head_(model, x, pos, dev, share=0.01) -> None:
         bn.running_var.fill_(1.0 - bn.eps)
         lin.bias.fill_(100.0)
     probe = PredictEngine(model.cfg, model.state_dict(), volume_size=VOL,
-                          return_volume=True, device=dev)
+                          return_volume=True, device=dev, **engine_kw)
     z = probe.encode(x, pos)["wnf_volume"] - 100.0
     probe.close()
     q = float(torch.quantile(z.flatten()[::7], 1.0 - share))
@@ -811,16 +825,14 @@ def blosc_route() -> str:
     return "zlib (no libblosc and no zstandard: degraded)"
 
 
-def phase_predict_cli(dev) -> dict:
+def phase_predict_cli(dev, tmp: pathlib.Path) -> tuple:
     """The port's predict CLI at full width on the card: the port's
     generator writes a synthetic dataset (no task-space volumes, a 32^3 GT
     volume, 4 views x 1500 points; 8 instances x 4 grips, all in the test
-    split), PipelineConfig() with seeded weights and a live head is saved
-    with save_pipeline_checkpoint, and predict.main runs over it at B=8,
-    128^3, decode 'high'. Returns its launch counts."""
-    import pathlib
-    import tempfile
-
+    split) into `tmp`, PipelineConfig() with seeded weights and a live head
+    is saved with save_pipeline_checkpoint, and predict.main runs over it
+    at B=8, 128^3, decode 'high'. Returns its launch counts and its run
+    directory."""
     import torch
     from garmentnets_tpu_torch.core.checkpoint import (
         save_pipeline_checkpoint)
@@ -834,106 +846,333 @@ def phase_predict_cli(dev) -> dict:
     from garmentnets_tpu_torch.models.pipeline import (
         ConvImplicitWNFPipeline, PipelineConfig)
 
-    with tempfile.TemporaryDirectory(prefix="gn_cli_") as tmp:
-        tmp = pathlib.Path(tmp)
+    t0 = time.perf_counter()
+    generate_dataset(str(tmp / "data.zarr"), num_instances=CLI_INSTANCES,
+                     grips_per_instance=CLI_GRIPS, volume_size=32,
+                     pts_per_view=N // 4, num_views=4, seed=0,
+                     include_task_space=False)
+    log(f"predict CLI: synthetic dataset of {CLI_INSTANCES * CLI_GRIPS} "
+        f"garments in {time.perf_counter() - t0:.1f} s")
+    cfg = load_config("predict_default", [
+        f"main.checkpoint_path={tmp / 'pipeline.ckpt'}",
+        f"datamodule.zarr_path={tmp / 'data.zarr'}",
+        f"datamodule.batch_size={B}", f"datamodule.num_pc_sample={N}",
+        "datamodule.volume_size=32",
+        f"datamodule.dataset_split={CLI_SPLIT}",
+        f"prediction.volume_size={VOL}",
+        "prediction.decode_precision=high", f"prediction.device={dev}"])
+    dm = ConvImplicitWNFDataModule(**cfg["datamodule"])
+    dm.prepare_data()
+    n_garments = len(dm.test_idxs)
+    n_batches = -(-n_garments // B)
+    check(n_garments >= 3 * B, f"only {n_garments} garments to predict")
+    first = next(iter(dm.test_dataloader()))
+    model = ConvImplicitWNFPipeline(PipelineConfig())
+    seeded_init_(model, 2)
+    live_head_(model, first["x"], first["pos"], dev)
+    save_pipeline_checkpoint(tmp / "pipeline.ckpt", model.cfg,
+                             model.state_dict())
+    del model
+
+    _build.reset_launch_counts()
+    run = first_run = predict.main(cfg, run_dir=str(tmp / "run"))
+    launches = dict(_build.LAUNCHES)
+    log(f"predict CLI launches over {n_batches} batches: {launches}")
+    check(launches == {"fps": 2 * n_batches, "sa_tc": 2 * n_batches,
+                       "dense_decode_tc": n_batches, "ggm": n_batches},
+          f"unexpected launch counts in the predict CLI: {launches}")
+
+    summary = json.loads((run / "summary.json").read_text())
+    recs = [json.loads(x) for x in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    root = zarrlite.open(str(run / "prediction.zarr"), "r")
+    groups = list(root["samples"].groups())
+    check(summary["garments"] == n_garments == len(groups),
+          f"{summary['garments']} garments written, {len(groups)} "
+          f"groups, {n_garments} in the split")
+    n_verts = []
+    for key, g in groups:
+        for sub, names in (("marching_cubes_mesh", MC_SCHEMA),
+                           ("point_cloud", PC_SCHEMA),
+                           ("misc", MISC_SCHEMA)):
+            have = {name for name, _ in g[sub].arrays()}
+            check(set(names) <= have, f"{key}/{sub} lacks "
+                  f"{sorted(set(names) - have)}")
+        for sub in ("gt_mesh", "gt_marching_cubes_mesh"):
+            check(sub in g, f"{key} lacks {sub}")
+        check(set(g.attrs.asdict()) >= {
+            "scale", "gender", "sample_id", "garment_name",
+            "grip_vertex_idx", "batch_idx"}, f"{key} attrs")
+        mc = g["marching_cubes_mesh"]
+        verts = mc["verts"][:]
+        check(len(verts) > 1 and np.isfinite(verts).all(),
+              f"{key}: the NaN-sentinel mesh (no surface)")
+        warp = mc["warp_field"][:]
+        check(warp.shape == verts.shape and np.isfinite(warp).all()
+              and np.isfinite(mc["volume_gradient_magnitude"][:]).all(),
+              f"{key}: warp values not finite")
+        n_verts.append(len(verts))
+    check(root.attrs.asdict() == {"subset": "test"}, "root attrs")
+    per_batch = "; ".join(
+        f"{k[:-3]} " + ", ".join(f"{r[k]:.1f}" for r in recs)
+        for k in CLI_STAGES)
+    log(f"predict CLI on {torch.cuda.get_device_name(0)}: "
+        f"{summary['garments_per_sec']:.3f} garments/s "
+        f"({summary['garments']} garments in "
+        f"{summary['elapsed_sec']:.3f} s; B={B}, N={N}, {VOL}^3, decode "
+        f"'high', encode(i+1) under host MC(i), warp collected at depth "
+        f"2, zarr written by a writer thread, data loaded by 2 worker "
+        f"threads); zarr codec: {blosc_route()}; verts per garment "
+        f"{min(n_verts)}-{max(n_verts)}")
+    log(f"predict CLI ms of each batch (encode: CUDA events around the "
+        f"encode; the rest host clock): {per_batch}")
+
+    # the same run without the [N, bins*3] logits, the largest array a
+    # garment writes: how much of the time the writer takes
+    cfg["prediction"]["store_pred_nocs_logits"] = False
+    _build.reset_launch_counts()
+    run = predict.main(cfg, run_dir=str(tmp / "run_nologits"))
+    check(dict(_build.LAUNCHES) == launches,
+          f"launch counts without logits: {_build.LAUNCHES}")
+    summary = json.loads((run / "summary.json").read_text())
+    recs = [json.loads(x) for x in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    per_batch = "; ".join(
+        f"{k[:-3]} " + ", ".join(f"{r[k]:.1f}" for r in recs)
+        for k in CLI_STAGES)
+    log(f"predict CLI with prediction.store_pred_nocs_logits=false: "
+        f"{summary['garments_per_sec']:.3f} garments/s; ms of each "
+        f"batch: {per_batch}")
+    return launches, first_run
+
+ROOT = pathlib.Path(__file__).resolve().parent
+# summary columns the hole filter (value_key > value_threshold) can empty:
+# every other metric is finite on a sample with a surface
+HOLE_FILTERED = ("chamfer_symmetrical_nocs", "chamfer_symmetrical_sim",
+                 "hausdorff_nocs", "hausdorff_sim", "geodesic_rms_nocs",
+                 "geodesic_rms_sim")
+
+
+def finite_by_construction(column: str) -> bool:
+    return column not in HOLE_FILTERED and "_regular_" not in column
+
+
+def run_eval_cli(prediction_dir: pathlib.Path, cwd: pathlib.Path,
+                 *overrides: str) -> tuple:
+    """`python -m garmentnets_tpu_torch.harness.eval` on a predict run, in
+    a subprocess of its own (a fork of this CUDA process would be unsafe),
+    with configs/eval_default.yaml, num_workers=-1 and `overrides`.
+    Returns (eval run dir, timings, all_metrics frame, parallel mode)."""
+    import pandas as pd
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "garmentnets_tpu_torch.harness.eval",
+         f"main.prediction_output_dir={prediction_dir}",
+         "main.num_workers=-1", *overrides],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"eval CLI failed:\n{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    run = cwd / lines[-1]
+    modes = [x for x in lines if x.startswith("parallel_map: ")]
+    check(len(modes) == 1, f"eval CLI parallel modes: {modes}")
+    check(not any(x.startswith("Errors in ") for x in lines),
+          "eval CLI captured errors: " + "; ".join(
+              x for x in lines if x.startswith(("Errors in ", "  sample "))))
+    timings = json.loads((run / "timings.json").read_text())
+    timings["wall"] = wall
+    df = pd.read_csv(run / "all_metrics.csv", index_col=0)
+    return run, timings, df, modes[0]
+
+
+def report_eval(what: str, run, timings: dict, df, mode: str) -> None:
+    """Log an eval run and fail on a non-finite metric that is finite by
+    construction on a sample with a surface."""
+    summary = json.loads((run / "summary.json").read_text())
+    funcs = {k: round(v, 3) for k, v in timings.items()
+             if k.startswith("compute_")}
+    n = timings["samples"]
+    log(f"eval {what}: {mode}; seconds per metric function {funcs}, "
+        f"metrics {timings['metrics_total']:.3f} s, eval "
+        f"{timings['total']:.3f} s ({n / timings['total']:.3f} garments/s), "
+        f"process wall "
+        f"{timings['wall']:.3f} s (host times on the card's machine); null "
+        f"samples {timings['null_samples']} of {n}")
+    log(f"eval {what}: summary.json keys {sorted(summary)}")
+    live = df[df["null_percentage"] == 0]
+    bad = [c for c in live.columns if finite_by_construction(c)
+           and not np.isfinite(live[c].to_numpy(np.float64)).all()]
+    check(timings["null_samples"] == 0 and len(live) == n,
+          f"eval {what}: null samples")
+    check(not bad, f"eval {what}: non-finite values in {bad}")
+
+
+def phase_eval(cli_run: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """The port's eval CLI on the predict CLI's prediction.zarr, as
+    shipped (num_workers=-1), then with vis.samples_per_instance=1 and its
+    PLY files counted. Returns the seconds each metric function took."""
+    import pandas as pd
+    t0 = time.perf_counter()
+    run, timings, df, mode = run_eval_cli(cli_run, tmp)
+    report_eval("of the predict CLI's run", run, timings, df, mode)
+    enabled = {"compute_optimal_gradient_treshold", "compute_pc_metrics",
+               "compute_chamfer", "compute_hybrid_chamfer"}
+    check(enabled <= set(timings), f"eval metrics run: {sorted(timings)}")
+
+    vis_run, vis_t, vis_df, _ = run_eval_cli(cli_run, tmp,
+                                             "vis.samples_per_instance=1")
+    # the eval's own choice: the 2 best and 2 worst of the rank metric and
+    # samples 0..9, each with its three vis functions
+    ranked = vis_df["hybrid_chamfer_symmetrical_regular_pred"].sort_values()
+    picked = (set(ranked.index[:2]) | set(ranked.index[-2:])
+              | set(range(min(10, len(vis_df)))))
+    plys = sorted((vis_run / "vis").glob("*.ply"))
+    log(f"eval with vis.samples_per_instance=1: {len(plys)} PLY files "
+        f"({len(picked)} samples x 3), {vis_t['total']:.3f} s")
+    check(len(plys) == 3 * len(picked) and all(
+        p.stat().st_size > 200 for p in plys), "vis PLY files")
+    pd.testing.assert_frame_equal(vis_df, df)
+    log(f"eval phase: {time.perf_counter() - t0:.1f} s")
+    return timings
+
+
+def eval_ready_heads_(model) -> None:
+    """Fit a seeded network's outputs for every eval metric, before
+    live_head_: the volume head's weights are scaled by 0.2, so that its
+    live field stays above the ReLU's 0 around the surface (at full slope
+    it drops to 0 within a voxel, and the meshes of the int8 bricks then
+    hold near-degenerate triangles whose heat-method systems are exactly
+    singular: the geodesic metric fails on them, in the JAX eval as in the
+    port's); and the surface decoder's last ReLU is held open (its bias and
+    its BatchNorm's running mean raised by 100), so that no channel of the
+    warp field is constant and the sim-space mesh is not flat."""
+    import torch
+    warp_head = model.surface_decoder.mlp[-1]
+    lin, bn = warp_head[0], warp_head[2]
+    with torch.no_grad():
+        model.volume_decoder.mlp[-1][0].weight.mul_(0.2)
+        lin.bias.add_(100.0)
+        bn.running_mean.add_(100.0)
+
+
+def phase_variants(dev, tmp: pathlib.Path) -> dict:
+    """predict.main at full width on one batch of B=8 for each inference
+    variant, on checkpoints written by save_pipeline_checkpoint with seeded
+    weights, eval_ready_heads_ and a live head: (a) the mc-surface head
+    with use_hole_prediction, both aggregator include flags off, its
+    logits changing sign on the meshes (the live volume decoder minus
+    0.5); (b) the task-space model. The dataset (2 instances x 4 grips, 16^3 GT
+    volumes) carries task-space volumes. Then the eval CLI on each: (a)
+    with the logits as the value key, a threshold of 0.0 and the
+    grip-point, Hausdorff and geodesic metrics on; (b) with
+    volume_task_space. Returns the launch counts of both batches."""
+    import torch
+    from garmentnets_tpu_torch.core.checkpoint import (
+        save_pipeline_checkpoint)
+    from garmentnets_tpu_torch.core.config import load_config
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.data import zarrlite
+    from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule
+    from garmentnets_tpu_torch.data.synthetic import generate_dataset
+    from garmentnets_tpu_torch.harness import predict
+    from garmentnets_tpu_torch.kernels import _build
+    from garmentnets_tpu_torch.models.pipeline import (
+        ConvImplicitWNFPipeline, PipelineConfig)
+
+    t_phase = time.perf_counter()
+    zarr = tmp / "variants.zarr"
+    generate_dataset(str(zarr), num_instances=2, grips_per_instance=4,
+                     volume_size=16, pts_per_view=N // 4, num_views=4,
+                     seed=1, include_task_space=True)
+    log(f"variants: dataset of 8 garments with task-space volumes in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    variants = {
+        "holes": (PipelineConfig(
+            mc_surface_loss_weight=1.0, include_point_feature=False,
+            include_confidence_feature=False,
+            volume_agg_nn_channels=(128, 137, 128)),
+            ["prediction.use_hole_prediction=true"],
+            ["override_all.value_key="
+             "marching_cubes_mesh/is_on_surface_logits",
+             "override_all.value_threshold=0.0",
+             "eval.compute_grip_point_metrics.enabled=true",
+             "eval.compute_hausdorff.enabled=true",
+             "eval.compute_geodesic.enabled=true"]),
+        "task_space": (PipelineConfig(volume_task_space=True), [],
+                       ["override_all.volume_task_space=true"]),
+    }
+    all_launches, timings = {}, {}
+    for name, (pcfg, pred_over, eval_over) in variants.items():
         t0 = time.perf_counter()
-        generate_dataset(str(tmp / "data.zarr"), num_instances=CLI_INSTANCES,
-                         grips_per_instance=CLI_GRIPS, volume_size=32,
-                         pts_per_view=N // 4, num_views=4, seed=0,
-                         include_task_space=False)
-        log(f"predict CLI: synthetic dataset of {CLI_INSTANCES * CLI_GRIPS} "
-            f"garments in {time.perf_counter() - t0:.1f} s")
+        ckpt = tmp / f"{name}.ckpt"
         cfg = load_config("predict_default", [
-            f"main.checkpoint_path={tmp / 'pipeline.ckpt'}",
-            f"datamodule.zarr_path={tmp / 'data.zarr'}",
+            f"main.checkpoint_path={ckpt}", f"datamodule.zarr_path={zarr}",
             f"datamodule.batch_size={B}", f"datamodule.num_pc_sample={N}",
-            "datamodule.volume_size=32",
-            f"datamodule.dataset_split={CLI_SPLIT}",
-            f"prediction.volume_size={VOL}",
-            "prediction.decode_precision=high", f"prediction.device={dev}"])
+            "datamodule.volume_size=16", "datamodule.dataset_split=[0,0,1]",
+            f"prediction.volume_size={VOL}", f"prediction.device={dev}",
+            *pred_over])
         dm = ConvImplicitWNFDataModule(**cfg["datamodule"])
         dm.prepare_data()
-        n_garments = len(dm.test_idxs)
-        n_batches = -(-n_garments // B)
-        check(n_garments >= 3 * B, f"only {n_garments} garments to predict")
+        check(len(dm.test_idxs) == B, f"{len(dm.test_idxs)} garments")
         first = next(iter(dm.test_dataloader()))
-        model = ConvImplicitWNFPipeline(PipelineConfig())
-        seeded_init_(model, 2)
-        live_head_(model, first["x"], first["pos"], dev)
-        save_pipeline_checkpoint(tmp / "pipeline.ckpt", model.cfg,
-                                 model.state_dict())
+        model = ConvImplicitWNFPipeline(pcfg)
+        seeded_init_(model, 5)
+        eval_ready_heads_(model)
+        aabb = dm.val_dataset.cloth_sim_aabb
+        live_head_(model, first["x"], first["pos"], dev,
+                   task_aabb=aabb if pcfg.volume_task_space else None)
+        if pcfg.has_mc_surface_decoder:
+            with torch.no_grad():
+                model.mc_surface_decoder.load_state_dict(
+                    model.volume_decoder.state_dict())
+                model.mc_surface_decoder.mlp[-1][2].running_mean.add_(0.5)
+        save_pipeline_checkpoint(ckpt, pcfg, model.state_dict())
         del model
 
         _build.reset_launch_counts()
-        run = predict.main(cfg, run_dir=str(tmp / "run"))
+        run = predict.main(cfg, run_dir=str(tmp / f"run_{name}"))
         launches = dict(_build.LAUNCHES)
-        log(f"predict CLI launches over {n_batches} batches: {launches}")
-        check(launches == {"fps": 2 * n_batches, "sa_tc": 2 * n_batches,
-                           "dense_decode_tc": n_batches, "ggm": n_batches},
-              f"unexpected launch counts in the predict CLI: {launches}")
-
-        summary = json.loads((run / "summary.json").read_text())
-        recs = [json.loads(x) for x in
-                (run / "metrics.jsonl").read_text().splitlines()]
+        t_pred = time.perf_counter() - t0
+        log(f"variant {name}: launches over its one batch {launches}; "
+            f"predict {t_pred:.1f} s")
+        check(launches == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 1,
+                           "ggm": 1},
+              f"unexpected launch counts in variant {name}: {launches}")
         root = zarrlite.open(str(run / "prediction.zarr"), "r")
-        groups = list(root["samples"].groups())
-        check(summary["garments"] == n_garments == len(groups),
-              f"{summary['garments']} garments written, {len(groups)} "
-              f"groups, {n_garments} in the split")
-        n_verts = []
-        for key, g in groups:
-            for sub, names in (("marching_cubes_mesh", MC_SCHEMA),
-                               ("point_cloud", PC_SCHEMA),
-                               ("misc", MISC_SCHEMA)):
-                have = {name for name, _ in g[sub].arrays()}
-                check(set(names) <= have, f"{key}/{sub} lacks "
-                      f"{sorted(set(names) - have)}")
-            for sub in ("gt_mesh", "gt_marching_cubes_mesh"):
-                check(sub in g, f"{key} lacks {sub}")
-            check(set(g.attrs.asdict()) >= {
-                "scale", "gender", "sample_id", "garment_name",
-                "grip_vertex_idx", "batch_idx"}, f"{key} attrs")
+        n_on, n_verts = 0, 0
+        for key, g in root["samples"].groups():
             mc = g["marching_cubes_mesh"]
             verts = mc["verts"][:]
-            check(len(verts) > 1 and np.isfinite(verts).all(),
-                  f"{key}: the NaN-sentinel mesh (no surface)")
-            warp = mc["warp_field"][:]
-            check(warp.shape == verts.shape and np.isfinite(warp).all()
-                  and np.isfinite(mc["volume_gradient_magnitude"][:]).all(),
-                  f"{key}: warp values not finite")
-            n_verts.append(len(verts))
-        check(root.attrs.asdict() == {"subset": "test"}, "root attrs")
-        per_batch = "; ".join(
-            f"{k[:-3]} " + ", ".join(f"{r[k]:.1f}" for r in recs)
-            for k in CLI_STAGES)
-        log(f"predict CLI on {torch.cuda.get_device_name(0)}: "
-            f"{summary['garments_per_sec']:.3f} garments/s "
-            f"({summary['garments']} garments in "
-            f"{summary['elapsed_sec']:.3f} s; B={B}, N={N}, {VOL}^3, decode "
-            f"'high', encode(i+1) under host MC(i), warp collected at depth "
-            f"2, zarr written by a writer thread, data loaded by 2 worker "
-            f"threads); zarr codec: {blosc_route()}; verts per garment "
-            f"{min(n_verts)}-{max(n_verts)}")
-        log(f"predict CLI ms of each batch (encode: CUDA events around the "
-            f"encode; the rest host clock): {per_batch}")
-
-        # the same run without the [N, bins*3] logits, the largest array a
-        # garment writes: how much of the time the writer takes
-        cfg["prediction"]["store_pred_nocs_logits"] = False
-        _build.reset_launch_counts()
-        run = predict.main(cfg, run_dir=str(tmp / "run_nologits"))
-        check(dict(_build.LAUNCHES) == launches,
-              f"launch counts without logits: {_build.LAUNCHES}")
-        summary = json.loads((run / "summary.json").read_text())
-        recs = [json.loads(x) for x in
-                (run / "metrics.jsonl").read_text().splitlines()]
-        per_batch = "; ".join(
-            f"{k[:-3]} " + ", ".join(f"{r[k]:.1f}" for r in recs)
-            for k in CLI_STAGES)
-        log(f"predict CLI with prediction.store_pred_nocs_logits=false: "
-            f"{summary['garments_per_sec']:.3f} garments/s; ms of each "
-            f"batch: {per_batch}")
-    return launches
+            check(len(verts) > 1 and np.isfinite(verts).all()
+                  and np.isfinite(mc["warp_field"][:]).all(),
+                  f"variant {name}, {key}: no surface or warp not finite")
+            n_verts += len(verts)
+            has = {"is_on_surface", "is_on_surface_logits"} <= {
+                k for k, _ in mc.arrays()}
+            check(has == (name == "holes"),
+                  f"variant {name}, {key}: is_on_surface present {has}")
+            if has:
+                on = mc["is_on_surface"][:]
+                logits = mc["is_on_surface_logits"][:]
+                check(on.shape == logits.shape == (len(verts),)
+                      and on.dtype == bool and np.isfinite(logits).all()
+                      and np.array_equal(on, logits > 0),
+                      f"variant {name}, {key}: is_on_surface malformed")
+                n_on += int(on.sum())
+        log(f"variant {name}: {n_verts} vertices over 8 garments"
+            + (f", {n_on} on the surface by the head" if name == "holes"
+               else ""))
+        ev_run, ev_t, ev_df, mode = run_eval_cli(run, tmp, *eval_over)
+        report_eval(f"of variant {name}", ev_run, ev_t, ev_df, mode)
+        all_launches[name] = launches
+        timings[name] = ev_t
+        log(f"variant {name}: phase {time.perf_counter() - t0:.1f} s")
+    for key in ("compute_grip_point_metrics", "compute_hausdorff",
+                "compute_geodesic"):
+        check(key in timings["holes"], f"{key} did not run")
+    log(f"variants phase: {time.perf_counter() - t_phase:.1f} s")
+    return all_launches
 
 
 def small_cfg():
@@ -1018,21 +1257,27 @@ def main() -> int:
 
     rows = phase_kernels(dev)
     launches = phase_main_path(dev)
-    launches["cli"] = phase_predict_cli(dev)
+    with tempfile.TemporaryDirectory(prefix="gn_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        launches["cli"], cli_run = phase_predict_cli(dev, tmp)
+        phase_eval(cli_run, tmp)
+        launches.update(phase_variants(dev, tmp))
     phase_serve(dev)
     phase_small_reference(dev)
 
-    # launches over the driven paths: the main path at 'high' and the
-    # predict CLI (also at 'high') for the 'high' decode row, the main
-    # path's 'highest' batch for the 'highest' row, all three for the rest
+    # launches over the driven paths: the main path at 'high', the predict
+    # CLI and the two variant batches (all at 'high') for the 'high' decode
+    # row, the main path's 'highest' batch for the 'highest' row, all of
+    # them for the rest
+    at_high = ("high", "cli", "holes", "task_space")
     for k, row in rows.items():
         if k == "dense_decode_tc":
-            row["launches"] = launches["high"][k] + launches["cli"][k]
+            row["launches"] = sum(launches[p][k] for p in at_high)
         elif k == "dense_decode_tc_highest":
             row["launches"] = launches["highest"]["dense_decode_tc"]
         else:
-            row["launches"] = (launches["high"][k] + launches["highest"][k]
-                               + launches["cli"][k])
+            row["launches"] = sum(launches[p][k]
+                                  for p in at_high + ("highest",))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

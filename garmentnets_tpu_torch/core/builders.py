@@ -4,10 +4,12 @@ pipeline_hparams, with the key clean-up of
 tools/convert_checkpoint.py::_pipeline_hparams_from_torch).
 
 The hparams are the reference's nested constructor schema, as a Lightning
-checkpoint's `hyper_parameters` carries them. The port keeps only what
-inference reads: training-only keys (learning rate, loss weights, dropout,
-symmetry axis) are accepted and dropped, and the variants the port has
-not ported yet raise.
+checkpoint's `hyper_parameters` carries them. The port keeps what
+inference reads, every model variant included (the aggregator's include
+flags, the mc-surface head and its `mc_surface_loss_weight`,
+`volume_classification`, `volume_task_space`); the other training-only
+keys (learning rate, loss type and the other weights, dropout, symmetry
+axis) are accepted and dropped.
 """
 from __future__ import annotations
 
@@ -41,25 +43,15 @@ def pipeline_config_from_hparams(hp: dict) -> PipelineConfig:
                                  if k in _PN2_KEYS})
     agg = hp["volume_agg_params"]
     unet = hp["unet3d_params"]
-    unported = {
-        "volume_agg_params.include_point_feature=False":
-            not agg.get("include_point_feature", True),
-        "volume_agg_params.include_confidence_feature=False":
-            not agg.get("include_confidence_feature", True),
-        "volume_task_space=True": hp.get("volume_task_space", False),
-        "volume_classification=True": hp.get("volume_classification", False),
-        "mc_surface_loss_weight>0": hp.get("mc_surface_loss_weight", 0) > 0,
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(
-            f"model variant not ported yet (ROADMAP Queue 1): {missing}")
     return PipelineConfig(
         pointnet2=pn2,
         volume_agg_nn_channels=tuple(agg["nn_channels"]),
         volume_agg_batch_norm=agg.get("batch_norm", True),
         grid_shape=tuple(agg.get("grid_shape", (32, 32, 32))),
         reduce_method=agg.get("reduce_method", "max"),
+        include_point_feature=agg.get("include_point_feature", True),
+        include_confidence_feature=agg.get(
+            "include_confidence_feature", True),
         unet_in_channels=unet["in_channels"],
         unet_out_channels=unet["out_channels"],
         unet_f_maps=unet.get("f_maps", 32),
@@ -70,8 +62,14 @@ def pipeline_config_from_hparams(hp: dict) -> PipelineConfig:
             hp["volume_decoder_params"]["nn_channels"]),
         surface_decoder_channels=tuple(
             hp["surface_decoder_params"]["nn_channels"]),
+        mc_surface_decoder_channels=tuple(
+            hp.get("mc_surface_decoder_params",
+                   {"nn_channels": (128, 256, 256, 1)})["nn_channels"]),
         decoder_batch_norm=hp["volume_decoder_params"].get(
             "batch_norm", True),
+        mc_surface_loss_weight=hp.get("mc_surface_loss_weight", 0.0),
+        volume_classification=hp.get("volume_classification", False),
+        volume_task_space=hp.get("volume_task_space", False),
     )
 
 
@@ -84,8 +82,8 @@ def pipeline_hparams(cfg: PipelineConfig) -> dict:
             "batch_norm": cfg.volume_agg_batch_norm,
             "grid_shape": list(cfg.grid_shape),
             "reduce_method": cfg.reduce_method,
-            "include_point_feature": True,
-            "include_confidence_feature": True,
+            "include_point_feature": cfg.include_point_feature,
+            "include_confidence_feature": cfg.include_confidence_feature,
         },
         "unet3d_params": {
             "in_channels": cfg.unet_in_channels,
@@ -103,4 +101,11 @@ def pipeline_hparams(cfg: PipelineConfig) -> dict:
             "nn_channels": list(cfg.surface_decoder_channels),
             "batch_norm": cfg.decoder_batch_norm,
         },
+        "mc_surface_decoder_params": {
+            "nn_channels": list(cfg.mc_surface_decoder_channels),
+            "batch_norm": cfg.decoder_batch_norm,
+        },
+        "mc_surface_loss_weight": cfg.mc_surface_loss_weight,
+        "volume_classification": cfg.volume_classification,
+        "volume_task_space": cfg.volume_task_space,
     }

@@ -1,6 +1,6 @@
 """YAML configs with dotted CLI overrides (the port's copy of what its CLIs
-need from garmentnets_tpu/core/config.py: load_config, parse_cli,
-make_run_dir and dump_config).
+need from garmentnets_tpu/core/config.py: load_config, load_yaml,
+parse_cli, make_run_dir and dump_config).
 
 Configs are read from the repository's configs/ directory. `yaml` is
 imported when a config is loaded, so the rest of the port does not need
@@ -49,6 +49,12 @@ def load_config(name: str, overrides: Optional[Sequence[str]] = None,
         key, _, val = ov.partition("=")
         apply_override(cfg, key.strip(), yaml.safe_load(val))
     return cfg
+
+
+def load_yaml(path) -> dict:
+    """A YAML file as a dict (the eval CLI reads predict's config.yaml)."""
+    with pathlib.Path(path).expanduser().open() as f:
+        return _yaml().safe_load(f) or {}
 
 
 def parse_cli(argv: Sequence[str]) -> list:

@@ -6,13 +6,15 @@ port of garmentnets_tpu/harness/predict.py).
 
 reads configs/predict_default.yaml with dotted overrides. Per sample it
 writes the JAX CLI's prediction.zarr schema: marching_cubes_mesh {verts,
-faces, normals, volume_value, volume_gradient_magnitude, warp_field},
+faces, normals, volume_value, volume_gradient_magnitude, warp_field[,
+is_on_surface, is_on_surface_logits with prediction.use_hole_prediction]},
 point_cloud {pred/gt NOCS, inputs[, pred_nocs_logits]}, the copied
 gt_marching_cubes_mesh, the rot-augmented gt_mesh and misc grip-point
 data, every array Blosc zstd-6 bitshuffle (zlib, with zarrlite's warning,
 where neither libblosc nor `zstandard` is installed), with NaN-sentinel
-placeholders where marching cubes finds no surface. garmentnets_tpu/harness/eval.py
-reads it.
+placeholders where marching cubes finds no surface. The port's eval CLI
+(harness/eval.py) and the JAX package's read it. A task-space checkpoint
+(`volume_task_space`) runs with the dataset's sim AABB.
 
 `prediction.device` picks the device: the card unless it says cpu (no
 fallback). Checkpoints are Lightning `.ckpt` files (core/checkpoint.py;
@@ -88,6 +90,12 @@ def process_item(enc_np: dict, item: int, batch_np: dict, input_group,
                 warp["verts_ggm"].astype(np.float32),
             "warp_field": warp["warp_field"].astype(np.float32),
         }
+        if "mc_surface_logits" in warp:
+            # the hole head's logits at the vertices, which the engine
+            # returns with use_hole_prediction (JAX CLI predict.py:92-95)
+            logits = warp["mc_surface_logits"].astype(np.float32)
+            mc_data["is_on_surface"] = logits > 0
+            mc_data["is_on_surface_logits"] = logits
     _write_group(output_group.require_group("marching_cubes_mesh"), mc_data)
 
     pc_data = {
@@ -144,10 +152,6 @@ def process_item(enc_np: dict, item: int, batch_np: dict, input_group,
 
 def check_supported(pred_cfg: dict) -> None:
     """Refuse, naming the key, the prediction options the port lacks."""
-    if pred_cfg.get("use_hole_prediction"):
-        raise NotImplementedError(
-            "prediction.use_hole_prediction=true: the mc-surface head is not "
-            "ported yet (ROADMAP Queue 1, model variants)")
     if pred_cfg.get("device_normals"):
         raise NotImplementedError(
             "prediction.device_normals=true: device normals are not ported "
@@ -187,11 +191,16 @@ def main(cfg, run_dir=None) -> pathlib.Path:
     checkpoint_path = pathlib.Path(cfg["main"]["checkpoint_path"]).expanduser()
     if not checkpoint_path.exists():
         raise FileNotFoundError(f"main.checkpoint_path: {checkpoint_path}")
-    try:
-        pipe_cfg, state_dict = load_pipeline_checkpoint(checkpoint_path)
-    except NotImplementedError as e:
-        raise NotImplementedError(
-            f"main.checkpoint_path={checkpoint_path}: {e}") from e
+    pipe_cfg, state_dict = load_pipeline_checkpoint(checkpoint_path)
+    use_holes = bool(pred_cfg.get("use_hole_prediction"))
+    if use_holes and not pipe_cfg.has_mc_surface_decoder:
+        raise ValueError(
+            f"prediction.use_hole_prediction=true needs a checkpoint with "
+            f"the mc-surface head (mc_surface_loss_weight > 0); "
+            f"main.checkpoint_path={checkpoint_path} has none")
+    datamodule = ConvImplicitWNFDataModule(**dm_cfg)
+    datamodule.prepare_data()
+    val_dataset = datamodule.val_dataset
     # on a card the engine refuses, naming the config key, what the kernels
     # cannot run, before anything is written; prediction.query_chunk sizes
     # the JAX engine's TPU decode programs, while the card's decode kernel
@@ -203,14 +212,14 @@ def main(cfg, run_dir=None) -> pathlib.Path:
         gradient_direction=pred_cfg["gradient_direction"],
         decode_precision=pred_cfg.get("decode_precision", "high"),
         device=device, num_points=int(dm_cfg["num_pc_sample"]),
-        points_key="datamodule.num_pc_sample")
+        points_key="datamodule.num_pc_sample",
+        use_hole_prediction=use_holes,
+        task_aabb=(val_dataset.cloth_sim_aabb
+                   if pipe_cfg.volume_task_space else None))
 
     run_dir = config_mod.make_run_dir(run_dir=run_dir)
     logger = make_logger(run_dir, cfg.get("logger"))
 
-    datamodule = ConvImplicitWNFDataModule(**dm_cfg)
-    datamodule.prepare_data()
-    val_dataset = datamodule.val_dataset
     subset = pred_cfg["subset"]
     dataloader = getattr(datamodule, f"{subset}_dataloader")()
 

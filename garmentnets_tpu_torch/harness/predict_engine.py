@@ -8,7 +8,15 @@ Per batch:
   extract_meshes: host C++ marching cubes on the brick pages, one garment
       per thread.
   warp: surface decoder at the mesh vertices plus the ggm gather at each
-      vertex's nearest voxel.
+      vertex's nearest voxel (plus the mc-surface head's logits with
+      `use_hole_prediction`).
+
+The model variants run as the JAX engine runs them: a task-space
+checkpoint (`volume_task_space`) takes the dataset's sim AABB
+(`task_aabb`) and aggregates the sim points normalized by it in place of
+the predicted NOCS; hole prediction (`use_hole_prediction`, on only for a
+checkpoint with the mc-surface head) adds the head's logits as a fifth
+warp channel, at the same f16-rounded queries.
 
 The warp's query points are the mesh vertices rounded to float16, as the
 JAX engine's are (its f16 wire format): the nearest-voxel ggm gather
@@ -84,7 +92,10 @@ def check_card_limits(cfg: PipelineConfig, volume_size: int,
     taps, more points than the FPS kernel holds, and volume-decoder widths,
     depth or head that the dense decode kernel does not take. Runs on the
     CPU too; the engine calls it for a card device, with the point count
-    its caller gives."""
+    its caller gives. The variants need no limit of their own: the
+    mc-surface head runs in stock torch at the mesh vertices (grid_sample
+    and its MLP, as the surface decoder does), not through the decode
+    kernel, and the task-space rescale is elementwise."""
     from garmentnets_tpu_torch.kernels import dense_decode_tc, fps, ggm
     from garmentnets_tpu_torch.ops.gaussian import ggm_radius
     errors = []
@@ -145,19 +156,30 @@ class PredictEngine:
                  return_volume: bool = False,
                  mc_threads: Optional[int] = None,
                  device="cuda", num_points: Optional[int] = None,
-                 points_key: str = "datamodule.num_pc_sample"):
+                 points_key: str = "datamodule.num_pc_sample",
+                 use_hole_prediction: bool = False, task_aabb=None):
         """state_dict: the pipeline's weights in the reference layout (see
         core/weights.py). decode_precision: the dense decode's tier, 'high'
         (bf16x3, the JAX engine's default), 'default' (bf16) or 'highest'
         (f32), case-insensitive. num_points: the caller's points a cloud,
         checked on a card device against the FPS kernel under the config
-        key `points_key`."""
+        key `points_key`. use_hole_prediction: add the mc-surface logits to
+        the warp (on only when cfg has the head). task_aabb: the dataset's
+        sim AABB [2, 3], required by a task-space cfg."""
+        if cfg.volume_task_space and task_aabb is None:
+            raise ValueError(
+                "cfg.volume_task_space=True requires task_aabb "
+                "(dataset.cloth_sim_aabb, shape [2,3])")
         self.decode_precision = check_precision(decode_precision)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_card_limits(cfg, volume_size, gradient_sigma,
                               num_points=num_points, points_key=points_key)
         self.cfg = cfg
+        self.use_hole_prediction = bool(use_hole_prediction
+                                        and cfg.has_mc_surface_decoder)
+        self.task_aabb = (None if task_aabb is None else torch.as_tensor(
+            np.asarray(task_aabb, np.float32), device=self.device))
         self.model = ConvImplicitWNFPipeline(cfg)
         self.model.to(self.device).eval()
         self.volume_size = volume_size
@@ -215,6 +237,9 @@ class PredictEngine:
         # (tools/profile_encode.py); without a profiler they cost a few us
         with record_function("encode/stage1_pointnet2"):
             p2 = self.model.pointnet2_forward(x, pos)
+            if self.cfg.volume_task_space:
+                aabb = self.task_aabb.expand(pos.shape[0], 2, 3)
+                p2 = self.model.apply_volume_task_space(pos, aabb, p2)
         with record_function("encode/aggregate_unet3d"):
             feature_volume = self.model.unet3d_forward(p2["nocs_data"])
         with record_function("encode/dense_decode"):
@@ -331,9 +356,10 @@ class PredictEngine:
     @torch.no_grad()
     @full_f32()
     def warp_dispatch(self, enc: dict, meshes: list):
-        """Queue the surface decoder + ggm gather over all garments' mesh
-        vertices and the copy of the result into a pinned host buffer;
-        returns a handle for warp_collect."""
+        """Queue the surface decoder + ggm gather (+ the mc-surface logits
+        with hole prediction) over all garments' mesh vertices and the copy
+        of the result into a pinned host buffer; returns a handle for
+        warp_collect."""
         sizes = [0 if m is None else len(m[0]) for m in meshes]
         vmax = max(sizes) if sizes else 0
         if vmax == 0:
@@ -349,7 +375,11 @@ class PredictEngine:
         nn_idx = torch.clamp((q * (S - 1)).to(torch.int64), 0, S - 1)
         flat = (nn_idx[..., 0] * S + nn_idx[..., 1]) * S + nn_idx[..., 2]
         ggm_at = torch.gather(ggm.reshape(B, -1), 1, flat)
-        out = _to_host(torch.cat([warp, ggm_at[..., None]], dim=-1))
+        cols = [warp, ggm_at[..., None]]
+        if self.use_hole_prediction:
+            cols.append(self.model.mc_surface_decoder_forward(
+                enc["feature_volume"], q)[..., :1])
+        out = _to_host(torch.cat(cols, dim=-1))
         return (out, _record_event(self.device), sizes)
 
     def warp_collect(self, handle) -> list:
@@ -360,11 +390,17 @@ class PredictEngine:
         if event is not None:
             event.synchronize()
         out = out.numpy()
-        return [None if n == 0 else {"warp_field": out[b, :n, :3],
-                                     "verts_ggm": out[b, :n, 3]}
+        return [None if n == 0 else self._split_channels(out[b, :n])
                 for b, n in enumerate(sizes)]
+
+    def _split_channels(self, rows: np.ndarray) -> dict:
+        res = {"warp_field": rows[:, :3], "verts_ggm": rows[:, 3]}
+        if self.use_hole_prediction:
+            res["mc_surface_logits"] = rows[:, 4]
+        return res
 
     def warp_batch(self, enc: dict, meshes: list) -> list:
         """meshes: list of (verts, faces, ...) or None -> per garment
-        {"warp_field" [V, 3], "verts_ggm" [V]} or None."""
+        {"warp_field" [V, 3], "verts_ggm" [V][, "mc_surface_logits" [V]]}
+        or None."""
         return self.warp_collect(self.warp_dispatch(enc, meshes))

@@ -2,15 +2,18 @@
 
 Every CUDA kernel source `csrc/<name>.cu` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface
-(`_build/lib<name>-<hash>.so`) and loaded with ctypes. The host
-marching-cubes source `ops/cpp/marching.cpp` is compiled the same way with
-`g++`. The library name carries a hash of the source, the headers it may
-include (`csrc/*.cuh`) and the flags, so an edited source or header is
-rebuilt; a temp file plus `os.replace` keeps concurrent
-processes from loading a half-written library. A failed build raises.
+(`_build/lib<name>-<hash>.so`) and loaded with ctypes. The host C++
+sources `ops/cpp/<name>.cpp` (marching cubes, and the exact mesh
+Hausdorff distance of eval) are compiled the same way with `g++`. The
+library name carries a hash of the source, the headers it may include
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt; a
+temp file plus `os.replace` keeps concurrent processes from loading a
+half-written library. A failed build raises.
 
 Nothing here runs at import time: the first CUDA launch (or
-`build_all()`) triggers the build.
+`build_all()`) triggers the build. torch is imported by the two helpers
+that take a tensor, so host-only users (the eval's C++ Hausdorff helper)
+do not load it.
 """
 from __future__ import annotations
 
@@ -22,12 +25,11 @@ import shutil
 import subprocess
 import threading
 
-import torch
-
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
 CSRC_DIR = PKG_DIR / "csrc"
 CUDA_SOURCES = ("fps", "ggm", "sa_tc", "dense_decode_tc")
+HOST_SOURCES = ("marching", "hausdorff")
 # Libraries built from a source above with extra flags, on first use only
 # (build_all leaves them out): the ggm's radii 5..8.
 VARIANTS = {"ggm_wide": ("ggm", ("-DGGM_WIDE_RADII",))}
@@ -63,15 +65,16 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple:
     """(compiler argv without output path, output .so path)."""
-    if name == "marching":
-        src = PKG_DIR / "ops" / "cpp" / "marching.cpp"
+    host = name in HOST_SOURCES
+    if host:
+        src = PKG_DIR / "ops" / "cpp" / f"{name}.cpp"
         cmd = ["g++", *GXX_FLAGS, str(src)]
     else:
         source, extra = VARIANTS.get(name, (name, ()))
         src = CSRC_DIR / f"{source}.cu"
         cmd = [_nvcc(), *NVCC_FLAGS, *extra, str(src)]
     h = hashlib.sha256(src.read_bytes() + " ".join(cmd[1:]).encode())
-    if name != "marching":
+    if not host:
         for header in sorted(CSRC_DIR.glob("*.cuh")):
             h.update(header.read_bytes())
     return cmd, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -101,7 +104,7 @@ def _finish_build(name: str, proc, tmp, so) -> None:
     os.replace(tmp, so)
 
 
-def build_all(names=CUDA_SOURCES + ("marching",)) -> None:
+def build_all(names=CUDA_SOURCES + HOST_SOURCES) -> None:
     """Compile every library in `names` at once (one compiler process per
     source, all started together)."""
     with _LOCK:
@@ -148,12 +151,16 @@ def check_launch(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def stream_handle(t: torch.Tensor) -> int:
+def stream_handle(t: "torch.Tensor") -> int:
+    import torch
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
-    """Validate a tensor handed to a CUDA launcher."""
+def require_cuda(t: "torch.Tensor", name: str, dtype=None) -> None:
+    """Validate a tensor handed to a CUDA launcher (float32 unless `dtype`
+    says otherwise)."""
+    import torch
+    dtype = torch.float32 if dtype is None else dtype
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

@@ -3,8 +3,12 @@ eval mode (torch port of garmentnets_tpu/models/pipeline.py).
 
 The frozen stage-1 network runs in eval mode. Submodule names follow the
 reference Lightning layout (`pointnet2_nocs`, `volume_agg.local_nn`,
-`unet_3d.abstract_3d_unet`, `volume_decoder.mlp`, `surface_decoder.mlp`).
-Losses, the task-space variant and the mc-surface head are not ported yet.
+`unet_3d.abstract_3d_unet`, `volume_decoder.mlp`, `surface_decoder.mlp`,
+`mc_surface_decoder.mlp`). Every inference variant of the JAX
+`PipelineConfig` is here: the aggregator's include flags, the task-space
+volume (`volume_task_space`) and the mc-surface (hole) head
+(`mc_surface_loss_weight > 0`); `volume_classification` changes only the
+training loss, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,19 +34,26 @@ class VolumeFeatureAggregator(nn.Module):
     def __init__(self, nn_channels: Sequence[int] = (137, 137, 128),
                  batch_norm: bool = True,
                  grid_shape: Tuple[int, int, int] = (32, 32, 32),
-                 reduce_method: str = "max"):
+                 reduce_method: str = "max",
+                 include_point_feature: bool = True,
+                 include_confidence_feature: bool = True):
         super().__init__()
         self.local_nn = PointMLP(nn_channels, batch_norm)
         self.grid = VirtualGrid(grid_shape=tuple(grid_shape))
         self.reduce_method = reduce_method
+        self.include_point_feature = include_point_feature
+        self.include_confidence_feature = include_confidence_feature
 
     def forward(self, nocs_data: dict) -> torch.Tensor:
         points = nocs_data["pos"]                                 # [B,N,3]
         idxs = self.grid.get_points_grid_idxs(points)
-        features = torch.cat([
-            nocs_data["x"], points - self.grid.idxs_to_points(idxs),
-            nocs_data["sim_points"], nocs_data["pred_confidence"]], dim=-1)
-        features = self.local_nn(features)
+        feats = [nocs_data["x"]]
+        if self.include_point_feature:
+            feats += [points - self.grid.idxs_to_points(idxs),
+                      nocs_data["sim_points"]]
+        if self.include_confidence_feature:
+            feats.append(nocs_data["pred_confidence"])
+        features = self.local_nn(torch.cat(feats, dim=-1))
         vol = scatter_to_grid(features, self.grid.flatten_idxs(idxs),
                               self.grid.num_cells, self.reduce_method)
         return vol.reshape(points.shape[0], *self.grid.grid_shape,
@@ -76,6 +87,8 @@ class PipelineConfig:
     volume_agg_batch_norm: bool = True
     grid_shape: Tuple[int, int, int] = (32, 32, 32)
     reduce_method: str = "max"
+    include_point_feature: bool = True
+    include_confidence_feature: bool = True
     unet_in_channels: int = 128
     unet_out_channels: int = 128
     unet_f_maps: int = 32
@@ -84,7 +97,18 @@ class PipelineConfig:
     unet_num_levels: int = 4
     volume_decoder_channels: Tuple[int, ...] = (128, 256, 256, 1)
     surface_decoder_channels: Tuple[int, ...] = (128, 256, 256, 3)
+    mc_surface_decoder_channels: Tuple[int, ...] = (128, 256, 256, 1)
     decoder_batch_norm: bool = True
+    # training weights that select an inference variant: a positive
+    # mc-surface weight adds the hole head; volume_classification changes
+    # only the volume loss (JAX models/pipeline.py:251)
+    mc_surface_loss_weight: float = 0.0
+    volume_classification: bool = False
+    volume_task_space: bool = False
+
+    @property
+    def has_mc_surface_decoder(self) -> bool:
+        return self.mc_surface_loss_weight > 0
 
 
 class ConvImplicitWNFPipeline(nn.Module):
@@ -94,7 +118,8 @@ class ConvImplicitWNFPipeline(nn.Module):
         self.pointnet2_nocs = PointNet2NOCS(c.pointnet2)
         self.volume_agg = VolumeFeatureAggregator(
             c.volume_agg_nn_channels, c.volume_agg_batch_norm, c.grid_shape,
-            c.reduce_method)
+            c.reduce_method, c.include_point_feature,
+            c.include_confidence_feature)
         self.unet_3d = UNet3D(
             c.unet_in_channels, c.unet_out_channels, f_maps=c.unet_f_maps,
             layer_order=c.unet_layer_order, num_groups=c.unet_num_groups,
@@ -103,6 +128,9 @@ class ConvImplicitWNFPipeline(nn.Module):
                                                  c.decoder_batch_norm)
         self.surface_decoder = ImplicitWNFDecoder(c.surface_decoder_channels,
                                                   c.decoder_batch_norm)
+        if c.has_mc_surface_decoder:
+            self.mc_surface_decoder = ImplicitWNFDecoder(
+                c.mc_surface_decoder_channels, c.decoder_batch_norm)
 
     def pointnet2_forward(self, x: torch.Tensor, pos: torch.Tensor) -> dict:
         """Frozen stage 1: NOCS bins and confidence from the logits."""
@@ -126,3 +154,36 @@ class ConvImplicitWNFPipeline(nn.Module):
 
     def surface_decoder_forward(self, feature_volume, query_points):
         return self.surface_decoder(feature_volume, query_points)
+
+    def mc_surface_decoder_forward(self, feature_volume, query_points):
+        return self.mc_surface_decoder(feature_volume, query_points)
+
+    # task-space variant (reference :279-310) ----------------------------
+    @staticmethod
+    def get_aabb_scale_offset(aabb: torch.Tensor, padding: float = 0.05):
+        """aabb: [B, 2, 3] -> (scale [B], offset [B, 3]) (reference
+        :297-310)."""
+        nocs_radius = 0.5 - padding
+        radius = aabb.abs().amax(dim=1)[:, :2]
+        radius_scale = (nocs_radius / radius).amin(dim=1)
+        z_length = aabb[:, 1, 2] - aabb[:, 0, 2]
+        z_scale = (nocs_radius * 2) / z_length
+        scale = torch.minimum(radius_scale, z_scale)
+        z_max = aabb[:, 1, 2] * scale
+        offset = torch.full((aabb.shape[0], 3), 0.5, dtype=aabb.dtype,
+                            device=aabb.device)
+        offset[:, 2] = 1 - padding - z_max
+        return scale, offset
+
+    def apply_volume_task_space(self, pos: torch.Tensor,
+                                cloth_sim_aabb: torch.Tensor,
+                                pointnet2_result: dict) -> dict:
+        """Replace the predicted NOCS with AABB-normalized sim coords
+        (reference :279-295; item 0's scale and offset apply to the whole
+        batch, as there)."""
+        scale, offset = self.get_aabb_scale_offset(cloth_sim_aabb)
+        new_pos = pos * scale[0] + offset[0]
+        new_result = dict(pointnet2_result)
+        new_result["nocs_data"] = dict(pointnet2_result["nocs_data"],
+                                       pos=new_pos)
+        return new_result

@@ -1,17 +1,21 @@
-"""Host-side mesh and geometry utilities in numpy (the port's copy of the
-numpy parts of garmentnets_tpu/ops/geometry.py that the dataset and the
-synthetic data generator call).
+"""Host-side mesh and geometry utilities in numpy (the port's copy of
+garmentnets_tpu/ops/geometry.py without the accelerator path of
+`winding_number`).
 
-AABB normalizers, barycentric surface sampling, area-weighted vertex
-normals and the generalized winding number (numpy only; the JAX package's
-accelerator path of `winding_number` is not copied). The Hausdorff
-distances wait for the port of eval.
+AABB normalizers, test geometry, barycentric surface sampling,
+area-weighted vertex normals, connected components, the exact mesh
+Hausdorff and point-to-mesh distances (the C++ helper ops/cpp/hausdorff.cpp,
+built by kernels/_build.py; a failed build raises) and the generalized
+winding number.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
+
+from garmentnets_tpu_torch.kernels import _build
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +64,62 @@ class AABBGripNormalizer:
 
 def get_aabb(coords: np.ndarray) -> np.ndarray:
     return np.stack([np.min(coords, axis=0), np.max(coords, axis=0)])
+
+
+def buffer_aabb(aabb: np.ndarray, buffer) -> np.ndarray:
+    out = aabb.copy()
+    out[0] -= buffer
+    out[1] += buffer
+    return out
+
+
+def build_line(length: float = 1.0, num_nodes: int = 50):
+    """Straight-line test geometry (reference geometry_util.py:7-13)."""
+    verts = np.zeros((num_nodes, 3), dtype=np.float32)
+    verts[:, 0] = np.linspace(0, length, num_nodes)
+    edges = np.stack([np.arange(num_nodes - 1),
+                      np.arange(1, num_nodes)], axis=1).astype(np.uint32)
+    return verts, edges
+
+
+def build_rectangle(width: float = 0.45, height: float = 0.32,
+                    width_num_node: int = 23, height_num_node: int = 17):
+    """Rectangular cloth grid with uv coords + quad faces (reference
+    geometry_util.py:16-67), row-major with rows along the width axis."""
+    def xy_to_index(x_idx, y_idx):
+        return y_idx * height_num_node + x_idx
+
+    n = width_num_node * height_num_node
+    verts = np.zeros((n, 3), np.float32)
+    uv = np.zeros((n, 2), np.float32)
+    edges, faces = [], []
+    for x in range(height_num_node):
+        for y in range(width_num_node):
+            cur = xy_to_index(x, y)
+            verts[cur, 0] = x * height / (height_num_node - 1)
+            verts[cur, 1] = y * width / (width_num_node - 1)
+            uv[cur, 0] = x / (height_num_node - 1)
+            uv[cur, 1] = y / (width_num_node - 1)
+            if x + 1 < height_num_node:
+                edges.append([cur, xy_to_index(x + 1, y)])
+            if y + 1 < width_num_node:
+                edges.append([cur, xy_to_index(x, y + 1)])
+            if x + 1 < height_num_node and y + 1 < width_num_node:
+                faces.append([cur, xy_to_index(x + 1, y),
+                              xy_to_index(x + 1, y + 1),
+                              xy_to_index(x, y + 1)])
+    return (verts, np.asarray(edges, np.uint32),
+            np.asarray(faces, np.uint32), uv)
+
+
+def faces_to_edges(faces) -> np.ndarray:
+    """Unique undirected edge list of a polygon soup (reference
+    geometry_util.py:69-77)."""
+    edges_set = set()
+    for face in faces:
+        for i in range(1, len(face)):
+            edges_set.add(tuple(sorted((int(face[i - 1]), int(face[i])))))
+    return np.array(sorted(edges_set), dtype=np.int64)
 
 
 def quads2tris(quads: np.ndarray) -> np.ndarray:
@@ -137,6 +197,113 @@ def per_vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
     norm = np.linalg.norm(vert_n, axis=1, keepdims=True)
     norm[norm == 0] = 1.0
     return vert_n / norm
+
+
+def connected_components(faces: np.ndarray, num_verts: int
+                         ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Vertex connected components of a triangle mesh.
+
+    Replaces igl.adjacency_matrix + igl.connected_components
+    (reference eval.py:499-501). Returns (num_cc, labels, sizes); isolated
+    vertices each form their own component (matching igl).
+    """
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components as cc
+
+    if len(faces) == 0:
+        labels = np.arange(num_verts)
+        return num_verts, labels, np.ones(num_verts, dtype=np.int64)
+    rows = np.concatenate([faces[:, 0], faces[:, 1], faces[:, 2]])
+    cols = np.concatenate([faces[:, 1], faces[:, 2], faces[:, 0]])
+    data = np.ones(len(rows), dtype=np.int8)
+    adj = coo_matrix((data, (rows, cols)), shape=(num_verts, num_verts))
+    n, labels = cc(adj, directed=False)
+    sizes = np.bincount(labels, minlength=n)
+    return n, labels, sizes
+
+
+_DP = ctypes.POINTER(ctypes.c_double)
+_IP = ctypes.POINTER(ctypes.c_int32)
+
+
+def hausdorff_lib() -> ctypes.CDLL:
+    """The C++ helper ops/cpp/hausdorff.cpp (AABB tree + exact
+    closest-point-on-triangle), built by g++ into the package's _build/
+    directory at first use; a failed build raises."""
+    lib = _build.load("hausdorff")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.mesh_hausdorff_exact.restype = ctypes.c_double
+        lib.mesh_hausdorff_exact.argtypes = [
+            _DP, ctypes.c_int64, _IP, ctypes.c_int64,
+            _DP, ctypes.c_int64, _IP, ctypes.c_int64]
+        lib.points_to_mesh_distances.restype = None
+        lib.points_to_mesh_distances.argtypes = [
+            _DP, ctypes.c_int64, _DP, ctypes.c_int64, _IP, ctypes.c_int64,
+            _DP]
+        lib._argtypes_set = True
+    return lib
+
+
+def mesh_hausdorff(va: np.ndarray, fa: np.ndarray,
+                   vb: np.ndarray, fb: np.ndarray) -> float:
+    """Symmetric Hausdorff distance between two triangle meshes, with
+    igl.hausdorff's exact semantics (reference eval.py:569): the max over
+    VERTICES of either mesh of the exact point-to-triangle-mesh distance to
+    the other (igl's definition — itself a lower bound of the true
+    surface-to-surface Hausdorff distance), by the C++ helper."""
+    lib = hausdorff_lib()
+    va64 = np.ascontiguousarray(va, np.float64)
+    vb64 = np.ascontiguousarray(vb, np.float64)
+    fa32 = np.ascontiguousarray(fa, np.int32).reshape(-1, 3)
+    fb32 = np.ascontiguousarray(fb, np.int32).reshape(-1, 3)
+    return float(lib.mesh_hausdorff_exact(
+        va64.ctypes.data_as(_DP), len(va64),
+        fa32.ctypes.data_as(_IP), len(fa32),
+        vb64.ctypes.data_as(_DP), len(vb64),
+        fb32.ctypes.data_as(_IP), len(fb32)))
+
+
+def mesh_hausdorff_sampled(va: np.ndarray, fa: np.ndarray,
+                           vb: np.ndarray, fb: np.ndarray,
+                           num_samples: int = 20000, seed: int = 0) -> float:
+    """Point-sampled approximation of `mesh_hausdorff`: the max over
+    (sampled + vertex) points of either mesh of the distance to the other
+    mesh's sample set. The JAX package takes it where no g++ toolchain is
+    there; the port calls it only by this name."""
+    from scipy.spatial import cKDTree
+
+    def point_set(v, f, s):
+        if len(f) == 0:
+            return v
+        bc, fi = mesh_sample_barycentric(v, f, num_samples, seed=s)
+        pts = barycentric_interpolation(bc, v, f[fi])
+        return np.concatenate([v, pts], axis=0)
+
+    pa = point_set(va, fa, seed)
+    pb = point_set(vb, fb, seed + 1)
+    d_ab = cKDTree(pb).query(pa, k=1)[0].max()
+    d_ba = cKDTree(pa).query(pb, k=1)[0].max()
+    return float(max(d_ab, d_ba))
+
+
+def points_to_mesh_distance(points: np.ndarray, verts: np.ndarray,
+                            faces: np.ndarray) -> np.ndarray:
+    """Exact distance from each query point to the triangle mesh (AABB
+    tree + closest-point-on-triangle, ops/cpp/hausdorff.cpp). Used for
+    surface-DEVIATION measurement — point-to-point chamfer between two
+    samplings of the same surface floors at the sample spacing,
+    point-to-triangle does not."""
+    lib = hausdorff_lib()
+    points = np.ascontiguousarray(points, np.float64).reshape(-1, 3)
+    v64 = np.ascontiguousarray(verts, np.float64)
+    f32v = np.ascontiguousarray(faces, np.int32).reshape(-1, 3)
+    out = np.empty(len(points), np.float64)
+    lib.points_to_mesh_distances(
+        points.ctypes.data_as(_DP), len(points),
+        v64.ctypes.data_as(_DP), len(v64),
+        f32v.ctypes.data_as(_IP), len(f32v),
+        out.ctypes.data_as(_DP))
+    return out
 
 
 # ---------------------------------------------------------------------------

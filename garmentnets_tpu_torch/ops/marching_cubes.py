@@ -6,7 +6,8 @@ The library is compiled with g++ into the ignored `_build/` directory at
 first use (kernels/_build.py); a failed build raises. There is no
 pure-Python fallback. `marching_cubes` / `marching_cubes_bricks` raise
 ValueError when no surface is produced (the predict harness's NaN-sentinel
-protocol depends on this).
+protocol depends on this). `delete_invalid_verts` is the eval's filter of
+a mesh to its on-surface vertices.
 """
 from __future__ import annotations
 
@@ -144,3 +145,19 @@ def marching_cubes(volume: np.ndarray, level: float,
     if ascent:
         normals = -normals  # skimage: normals point toward gradient descent
     return verts, faces, normals, values
+
+
+def delete_invalid_verts(mc_verts, mc_faces, is_vert_on_surface):
+    """Drop faces touching off-surface verts and reindex (reference
+    common/marching_cubes_util.py:38-53)."""
+    is_vert_on_surface = np.asarray(is_vert_on_surface, bool)
+    is_face_valid = np.ones(len(mc_faces), dtype=bool)
+    for i in range(3):
+        is_face_valid &= is_vert_on_surface[mc_faces[:, i]]
+    raw_valid_faces = mc_faces[is_face_valid]
+    raw_valid_vert_idx = np.unique(raw_valid_faces.flatten())
+    valid_verts = mc_verts[raw_valid_vert_idx]
+    remap = np.zeros(len(mc_verts), dtype=mc_faces.dtype)
+    remap[raw_valid_vert_idx] = np.arange(
+        len(valid_verts), dtype=mc_faces.dtype)
+    return valid_verts, remap[raw_valid_faces]

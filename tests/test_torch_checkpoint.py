@@ -79,9 +79,17 @@ def test_released_checkpoint_logging_keys_are_dropped(exported, tmp_path):
     ("volume_task_space", True), ("mc_surface_loss_weight", 1.0),
     ("volume_classification", True)])
 def test_unported_variants_raise(key, value):
+    """The variants the loader refused until they were ported: the JAX
+    package's hparams now build the port's config with the key set, as
+    the JAX builder does, and pipeline_hparams writes it back."""
+    from garmentnets_tpu.core.builders import (
+        pipeline_config_from_hparams as jax_config)
     hp = dict(jax_hparams(pu.jax_cfg()), **{key: value})
-    with pytest.raises(NotImplementedError, match=key):
-        builders.pipeline_config_from_hparams(hp)
+    cfg = builders.pipeline_config_from_hparams(hp)
+    assert getattr(cfg, key) == value == getattr(jax_config(hp), key)
+    assert builders.pipeline_hparams(cfg)[key] == value
+    assert builders.pipeline_config_from_hparams(
+        builders.pipeline_hparams(cfg)) == cfg
 
 
 def test_checkpoint_without_hparams_raises(tmp_path):

@@ -346,3 +346,49 @@ def test_to_device_from_host_and_card(dev):
     assert t.is_cuda and t.dtype == torch.float32
     assert torch.equal(t.cpu(), torch.from_numpy(a).float())
     assert torch.equal(to_device(t, "cuda"), t)
+
+
+@pytest.mark.parametrize("variant", ["holes", "task_space"])
+def test_variant_engine_card_matches_cpu(dev, variant):
+    """The hole head (its logits a fifth warp channel) and the task-space
+    volume on the card against the same engine on the CPU at 'highest', a
+    tiny size: NOCS within 1e-6, WNF and ggm within 1e-3, and every warp
+    channel at the same vertices within 1e-3."""
+    import dataclasses
+    import numpy as np
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
+    from garmentnets_tpu_torch.models.pipeline import ConvImplicitWNFPipeline
+    over = ({"mc_surface_loss_weight": 1.0,
+             "mc_surface_decoder_channels": (32, 16, 1)}
+            if variant == "holes" else {"volume_task_space": True})
+    cfg = dataclasses.replace(chip_smoke.small_cfg(), **over)
+    model = ConvImplicitWNFPipeline(cfg)
+    seeded_init_(model, 6)
+    rng = np.random.RandomState(6)
+    x = rng.rand(2, 256, 3).astype(np.float32)
+    pos = (rng.rand(2, 256, 3) - 0.5).astype(np.float32)
+    verts = rng.rand(2, 300, 3).astype(np.float16).astype(np.float32)
+    meshes = [(v, None) for v in verts]
+    kw = dict(use_hole_prediction=True, task_aabb=np.array(
+        [[-0.5, -0.5, -0.6], [0.5, 0.55, 0.4]], np.float32))
+    out = {}
+    for d in (dev, "cpu"):
+        eng = PredictEngine(cfg, model.state_dict(), volume_size=32,
+                            return_volume=True, decode_precision="highest",
+                            mc_threads=1, device=d, **kw)
+        enc = eng.encode(x, pos)
+        out[str(d)] = ({k: v.cpu() for k, v in enc.items()
+                        if torch.is_tensor(v)}, eng.warp_batch(enc, meshes))
+        eng.close()
+    (e_card, w_card), (e_cpu, w_cpu) = out[str(dev)], out["cpu"]
+    assert float((e_card["pred_nocs"] - e_cpu["pred_nocs"]).abs().max()) \
+        <= 1e-6
+    for k in ("wnf_volume", "wnf_ggm"):
+        assert float((e_card[k] - e_cpu[k]).abs().max()) <= 1e-3, k
+    for a, b in zip(w_card, w_cpu):
+        assert sorted(a) == sorted(b)
+        assert ("mc_surface_logits" in a) == (variant == "holes")
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-3,
+                                       err_msg=k)

@@ -19,7 +19,6 @@ do not sample the predicted mesh; a moved vertex changes the area-weighted
 surface sampling of eval's chamfer and Hausdorff metrics (about a tenth
 of the drawn faces for one vertex), which is bounded separately.
 """
-import copy
 import json
 import pathlib
 import sys
@@ -36,12 +35,10 @@ from garmentnets_tpu.core.builders import pipeline_hparams  # noqa: E402
 from garmentnets_tpu.core.checkpoint import save_checkpoint  # noqa: E402
 from garmentnets_tpu.harness import eval as jeval  # noqa: E402
 from garmentnets_tpu.harness import predict as jpredict  # noqa: E402
-from garmentnets_tpu_torch.core.weights import state_dict_from_jax  # noqa: E402
 from garmentnets_tpu_torch.data import zarrlite  # noqa: E402
 from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule  # noqa: E402
 from garmentnets_tpu_torch.data.synthetic import generate_dataset  # noqa: E402
 from garmentnets_tpu_torch.harness import predict  # noqa: E402
-from garmentnets_tpu_torch.harness.predict_engine import PredictEngine  # noqa: E402
 from tools import export_checkpoint  # noqa: E402
 
 VOL = 16
@@ -68,20 +65,7 @@ GLOBAL_TOL = dict(rtol=1e-3, atol=2e-4)
 def _live_head(variables, x, pos, share=0.1):
     """The volume decoder head as relu(z + b) (identity BatchNorm), with b
     putting `share` of the voxels of (x, pos) above 0.5."""
-    v = copy.deepcopy(variables)
-    head = v["params"]["volume_decoder"]["mlp"]
-    head["bn_1"]["scale"][:] = 1.0
-    head["bn_1"]["bias"][:] = 0.0
-    v["batch_stats"]["volume_decoder"]["mlp"]["bn_1"]["mean"][:] = 0.0
-    v["batch_stats"]["volume_decoder"]["mlp"]["bn_1"]["var"][:] = 1 - 1e-5
-    head["dense_1"]["bias"][:] = 100.0
-    probe = PredictEngine(pu.torch_cfg(), state_dict_from_jax(v),
-                          volume_size=VOL, return_volume=True,
-                          decode_precision="highest", mc_threads=1,
-                          device="cpu")
-    z = probe.encode(x, pos)["wnf_volume"].numpy() - 100.0
-    head["dense_1"]["bias"][:] = 0.5 - np.quantile(z, 1 - share)
-    return v
+    return pu.live_head(variables, x, pos, VOL, share)
 
 
 @pytest.fixture(scope="module")
@@ -385,7 +369,6 @@ def test_logs_stage_times_and_summary(setup, outputs):
 
 
 @pytest.mark.parametrize("pred,match", [
-    ({"use_hole_prediction": True}, "prediction.use_hole_prediction"),
     ({"device_normals": True}, "prediction.device_normals")])
 def test_refuses_unported_options(setup, tmp_path, pred, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -394,16 +377,16 @@ def test_refuses_unported_options(setup, tmp_path, pred, match):
     assert not (tmp_path / "r").exists()
 
 
-def test_refuses_task_space_checkpoint(setup, tmp_path):
-    ck = torch.load(setup["ckpt"], weights_only=True)
-    ck["hyper_parameters"]["volume_task_space"] = True
-    path = tmp_path / "task.ckpt"
-    torch.save(ck, path)
-    cfg = _cfg(setup, "torch")
-    cfg["main"]["checkpoint_path"] = str(path)
-    with pytest.raises(NotImplementedError,
-                       match="main.checkpoint_path.*volume_task_space"):
-        predict.main(cfg, run_dir=str(tmp_path / "r"))
+def test_hole_prediction_needs_a_head_checkpoint(setup, tmp_path):
+    """prediction.use_hole_prediction on a checkpoint without the
+    mc-surface head is refused, naming both keys, before anything is
+    written."""
+    with pytest.raises(ValueError, match="prediction.use_hole_prediction"
+                       ".*mc_surface_loss_weight"):
+        predict.main(_cfg(setup, "torch",
+                          pred={"use_hole_prediction": True}),
+                     run_dir=str(tmp_path / "r"))
+    assert not (tmp_path / "r").exists()
 
 
 def test_defaults_to_the_card_without_fallback(setup, tmp_path):
