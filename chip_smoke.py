@@ -1230,6 +1230,370 @@ def phase_small_reference(dev) -> None:
               f"card and CPU paths disagree on a small input at '{tier}'")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+# the predict CLI's 8 instances x 4 grips, split for training: 24 train
+# garments (3 stage-1 batches of 8, one stage-2 batch of 24), 4 val, 4 test
+TRAIN_SPLIT = [6, 1, 1]
+S1_EPOCHS, S1_BATCHES, S2_EPOCHS = 2, 3, 4
+LEARN_STEPS, WARM_STEPS, TIMED_STEPS = 20, 3, 5
+# per tensor: the bar relative to its largest entry (stage 1 on the card
+# against the CPU; stage 2, whose frozen stage 1 runs the bf16x3 SA kernel
+# on the card), or SPREAD_FACTOR times the CPU's own change when the
+# weights or the input colours are jittered by 1e-6 relative
+TRAIN_REL = {1: 1e-4, 2: 1e-3}
+SPREAD_FACTOR = 10
+
+
+def train_cfg(stage: int, dropout: bool = False):
+    """Stage 1's or the pipeline's configuration for the card-vs-CPU
+    step: small_cfg(), dropout off (the card's and the CPU's random
+    streams differ)."""
+    import dataclasses
+    cfg = small_cfg()
+    cfg = dataclasses.replace(cfg, pointnet2=dataclasses.replace(
+        cfg.pointnet2, dropout=dropout))
+    return cfg.pointnet2 if stage == 1 else cfg
+
+
+def train_batch(stage: int, seed: int = 7, B: int = 2, N: int = 256,
+                M: int = 300) -> dict:
+    """A seeded numpy batch of the small configuration."""
+    rng = np.random.RandomState(seed)
+    b = {"x": rng.rand(B, N, 3), "pos": rng.rand(B, N, 3) - 0.5,
+         "y": rng.rand(B, N, 3), "nocs_grip_point": rng.rand(B, 3)}
+    if stage == 2:
+        b.update(volume_query_points=rng.rand(B, M, 3),
+                 gt_volume_value=rng.rand(B, M),
+                 surf_query_points=rng.rand(B, M, 3),
+                 gt_sim_points=rng.randn(B, M, 3))
+    return {k: v.astype(np.float32) for k, v in b.items()}
+
+
+def train_step_once(dev, stage: int, batch: dict, jitter_seed=None):
+    """One train step (make_train_fns, Adam) of `stage` at train_cfg()
+    with seeded_init_ weights, optionally jittered by (1 + 1e-6 N(0, 1)),
+    on `dev` -> (loss, {name: gradient}, {name: running statistic},
+    stage 2's NOCS bins or None), all on the CPU."""
+    import torch
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.harness.training import (
+        batch_to_device, make_adam, make_train_fns)
+    from garmentnets_tpu_torch.models import pipeline, pointnet2_nocs
+    cfg = train_cfg(stage)
+    if stage == 1:
+        model = pointnet2_nocs.PointNet2NOCS(cfg)
+
+        def apply_fn(b, gen):
+            return model(b["x"], b["pos"], generator=gen)
+
+        def loss_fn(out, b):
+            return pointnet2_nocs.get_metrics(cfg, out, b)[0]
+    else:
+        model = pipeline.ConvImplicitWNFPipeline(cfg)
+
+        def apply_fn(b, gen):
+            return model(b)
+
+        def loss_fn(out, b):
+            return pipeline.pipeline_loss(cfg, out, b)
+    seeded_init_(model, 8)
+    if jitter_seed is not None:
+        gen = torch.Generator().manual_seed(jitter_seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
+    if stage == 2:
+        model.pointnet2_nocs.requires_grad_(False)
+    model.to(dev)
+    train_step, _ = make_train_fns(model, apply_fn, loss_fn,
+                                   make_adam(model, 1e-3))
+    b = batch_to_device(batch, dev)
+    bins = None
+    if stage == 2:
+        with torch.no_grad():
+            bins = model.pointnet2_forward(
+                b["x"], b["pos"])["nocs_data"]["pos"].cpu()
+    loss = float(train_step(b)["loss"])
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    stats = {n: t.cpu() for n, t in model.named_buffers()
+             if "running" in n}
+    return loss, grads, stats, bins
+
+
+def phase_train_reference(dev) -> dict:
+    """One train step of each stage at the small configuration on the
+    card and on the CPU, from the same seeded state and batch: the loss,
+    every gradient and every running statistic within its bar (TRAIN_REL
+    of the tensor's largest entry, or SPREAD_FACTOR times the CPU's own
+    change under a 1e-6 jitter of the weights or of the input colours);
+    stage 2's NOCS bins identical. Returns the worst ratio of error to bar
+    per stage."""
+    import torch
+    worst = {}
+    for stage in (1, 2):
+        batch = train_batch(stage)
+        card = train_step_once(dev, stage, batch)
+        cpu = train_step_once("cpu", stage, batch)
+        moved = [train_step_once("cpu", stage, batch, jitter_seed=3),
+                 train_step_once("cpu", stage, dict(
+                     batch, x=batch["x"] * (1 + 1e-6 * np.random.RandomState(
+                         4).randn(*batch["x"].shape)).astype(np.float32)))]
+        rel = TRAIN_REL[stage]
+        ratios = []
+        for i, what in ((1, "gradient"), (2, "statistic")):
+            check(sorted(card[i]) == sorted(cpu[i]),
+                  f"stage {stage}: {what} names differ")
+            for name, ref in cpu[i].items():
+                spread = max(float((m[i][name] - ref).abs().max())
+                             for m in moved)
+                bar = max(rel * float(ref.abs().max()),
+                          SPREAD_FACTOR * spread)
+                err = float((card[i][name] - ref).abs().max())
+                ratios.append((err / bar if bar > 0 else float(err > 0),
+                               f"{what} {name}"))
+        spread = max(abs(m[0] - cpu[0]) for m in moved)
+        bar = max(rel * abs(cpu[0]), SPREAD_FACTOR * spread)
+        ratios.append((abs(card[0] - cpu[0]) / bar, "loss"))
+        ratio, name = max(ratios)
+        n_spread = sum(1 for i in (1, 2) for n, ref in cpu[i].items()
+                       if SPREAD_FACTOR * max(float((m[i][n] - ref).abs()
+                                                    .max()) for m in moved)
+                       > rel * float(ref.abs().max()))
+        log(f"train step card vs CPU, stage {stage}: loss {card[0]:.6f} vs "
+            f"{cpu[0]:.6f}; worst error/bar {ratio:.3f} ({name}); "
+            f"{n_spread} of {len(cpu[1]) + len(cpu[2])} bars set by the "
+            f"CPU's jitter spread")
+        if stage == 2:
+            check(torch.equal(card[3], cpu[3]),
+                  "stage-2 NOCS bins differ between card and CPU")
+        check(ratio <= 1.0, f"stage {stage} train step: card and CPU "
+              f"disagree ({name}: {ratio:.3f} of its bar)")
+        worst[stage] = ratio
+    return worst
+
+
+def run_summary(run: pathlib.Path) -> tuple:
+    """(metrics.jsonl records, summary.json) of a train run."""
+    recs = [json.loads(x) for x in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    return recs, json.loads((run / "summary.json").read_text())
+
+
+def timed_steps(dev, model, loss_fn, apply_fn, batch: dict, steps: int,
+                timed: tuple) -> dict:
+    """`steps` train steps of `model` on one batch (uploaded once), the
+    steps in range(*timed) between two CUDA events; the launches of step
+    timed[1] (which must be < steps) and of one eval step; the peak device
+    memory over the steps."""
+    import torch
+    from garmentnets_tpu_torch.harness.training import (
+        batch_to_device, make_adam, make_train_fns)
+    from garmentnets_tpu_torch.kernels import _build
+    opt = make_adam(model, 1e-4)
+    train_step, eval_step = make_train_fns(model, apply_fn, loss_fn, opt)
+    b = batch_to_device(batch, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(steps):
+        if i == timed[0]:
+            start.record()
+        if i == timed[1]:
+            end.record()
+            _build.reset_launch_counts()
+        losses.append(train_step(b, gen)["loss"])
+        if i == timed[1]:
+            step_launches = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _build.reset_launch_counts()
+    eval_step(b)
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / (timed[1] - timed[0]),
+            "losses": [float(x) for x in losses], "peak": peak,
+            "step": step_launches, "eval": dict(_build.LAUNCHES)}
+
+
+def phase_train(dev, tmp: pathlib.Path) -> dict:
+    """Both training stages on the card at the shipped configurations
+    (configs/train_*_default.yaml; stage 1 at B=8, 6000 points, 64 bins,
+    feature 128, dropout on; stage 2 at B=24, 6000 volume and surface
+    queries, 32^3 'gcr' U-Net f_maps 32, 4 levels) on the predict CLI's
+    synthetic dataset, split TRAIN_SPLIT:
+      - the stage-1 CLI, S1_EPOCHS epochs of S1_BATCHES steps, with
+        validation and vis; the stage-2 CLI from its last.ckpt, S2_EPOCHS
+        epochs of one step; the predict CLI on one batch from stage 2's
+        last.ckpt; launches of each counted exactly;
+      - outside the CLIs, a fixed full-width batch per stage: ms per
+        step over TIMED_STEPS steps after a warm-up (CUDA events),
+        samples/s, peak memory, launches per train and eval step; stage 1
+        over LEARN_STEPS steps must end below its first loss;
+      - phase_train_reference: one step of each stage, card against CPU.
+    Returns the launches of the three CLI runs."""
+    import torch
+    from garmentnets_tpu_torch.core.config import load_config
+    from garmentnets_tpu_torch.core.random_weights import init_like_jax_
+    from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule
+    from garmentnets_tpu_torch.harness import (
+        predict, train_pipeline, train_pointnet2)
+    from garmentnets_tpu_torch.kernels import _build
+    from garmentnets_tpu_torch.models import pipeline, pointnet2_nocs
+
+    t_phase = time.perf_counter()
+    gpu = torch.cuda.get_device_name(0)
+    common = [f"datamodule.zarr_path={tmp / 'data.zarr'}",
+              f"datamodule.dataset_split={TRAIN_SPLIT}",
+              "datamodule.volume_size=32", f"trainer.device={dev}"]
+    cfg1 = load_config("train_pointnet2_default", common + [
+        f"trainer.max_epochs={S1_EPOCHS}",
+        f"trainer.limit_train_batches={S1_BATCHES}"])
+    m1 = cfg1["model"]
+    check((cfg1["datamodule"]["batch_size"], cfg1["datamodule"][
+        "num_pc_sample"], m1["nocs_bins"], m1["feature_dim"],
+        m1["dropout"]) == (B, N, 64, 128, True),
+        "the shipped stage-1 configuration changed")
+    dm1 = ConvImplicitWNFDataModule(**cfg1["datamodule"])
+    dm1.prepare_data()
+    n_val = len(dm1.val_dataloader())
+    check(len(dm1.train_dataloader()) >= S1_BATCHES and n_val >= 1,
+          f"train split: {len(dm1.train_idxs)} train, "
+          f"{len(dm1.val_idxs)} val garments")
+    launches = {}
+
+    def run_cli(main, cfg, name):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = main(cfg, run_dir=str(tmp / name))
+        torch.cuda.synchronize()
+        launches[name] = dict(_build.LAUNCHES)
+        return run, time.perf_counter() - t0
+
+    # ---- stage-1 CLI: each train step FPS x2 (training SA: stock ops);
+    # each val batch and each epoch's vis forward FPS x2 and SA x2 ----
+    run1, wall1 = run_cli(train_pointnet2.main, cfg1, "train_s1")
+    evals1 = S1_EPOCHS * (n_val + 1)
+    want = {"fps": 2 * (S1_EPOCHS * S1_BATCHES + evals1),
+            "sa_tc": 2 * evals1, "dense_decode_tc": 0, "ggm": 0}
+    check(launches["train_s1"] == want,
+          f"stage-1 CLI launches {launches['train_s1']}, expected {want}")
+    recs, summary = run_summary(run1)
+    losses1 = [r["train_loss"] for r in recs if "train_loss" in r]
+    epochs1 = [r for r in recs if "epoch" in r]
+    check(len(losses1) == S1_EPOCHS * S1_BATCHES
+          and all(np.isfinite(losses1)), f"stage-1 losses {losses1}")
+    check(len(list((run1 / "media").glob("val_*.png"))) >= S1_EPOCHS
+          and (run1 / "checkpoints/last.ckpt").exists()
+          and len(list((run1 / "checkpoints").glob("epoch=*"))) == S1_EPOCHS,
+          "stage-1 CLI outputs")
+    log(f"train stage-1 CLI ({gpu}): {len(losses1)} steps at B={B}, "
+        f"N={N} over {S1_EPOCHS} epochs in {wall1:.1f} s; train loss "
+        f"{losses1[0]:.4f} -> {losses1[-1]:.4f}; val_loss "
+        f"{[round(r['val_loss'], 4) for r in epochs1]}; epoch_sec "
+        f"{[round(r['epoch_sec'], 3) for r in epochs1]}; step waited on "
+        f"the loader {[round(w, 3) for w in summary['loader_wait_sec']]} "
+        f"s an epoch; launches {launches['train_s1']}")
+
+    # ---- stage-2 CLI from stage 1's last.ckpt: each step, val batch and
+    # vis forward runs the frozen stage 1 in eval mode: FPS x2, SA x2 ----
+    cfg2 = load_config("train_pipeline_default", common + [
+        f"pointnet2_model.checkpoint_path={run1 / 'checkpoints/last.ckpt'}",
+        f"trainer.max_epochs={S2_EPOCHS}"])
+    c2, dm2cfg = cfg2["conv_implicit_model"], cfg2["datamodule"]
+    check((dm2cfg["batch_size"], dm2cfg["num_volume_sample"],
+           dm2cfg["num_surface_sample"], c2["unet3d_params"]["f_maps"],
+           c2["unet3d_params"]["num_levels"],
+           c2["volume_agg_params"]["grid_shape"]) == (
+               24, 6000, 6000, 32, 4, [32, 32, 32]),
+          "the shipped stage-2 configuration changed")
+    run2, wall2 = run_cli(train_pipeline.main, cfg2, "train_s2")
+    steps2 = S2_EPOCHS * (len(dm1.train_idxs) // dm2cfg["batch_size"])
+    n_val2 = -(-len(dm1.val_idxs) // dm2cfg["batch_size"])
+    per = steps2 + S2_EPOCHS * (n_val2 + 1)
+    want = {"fps": 2 * per, "sa_tc": 2 * per, "dense_decode_tc": 0,
+            "ggm": 0}
+    check(steps2 >= 4 and launches["train_s2"] == want,
+          f"stage-2 CLI launches {launches['train_s2']}, expected {want}")
+    recs, summary = run_summary(run2)
+    losses2 = [r["train_loss"] for r in recs if "train_loss" in r]
+    epochs2 = [r for r in recs if "epoch" in r]
+    check(len(losses2) == steps2 and all(np.isfinite(losses2)),
+          f"stage-2 losses {losses2}")
+    log(f"train stage-2 CLI ({gpu}): {steps2} steps at B="
+        f"{dm2cfg['batch_size']} over {S2_EPOCHS} epochs in {wall2:.1f} s; "
+        f"train loss {[round(x, 4) for x in losses2]}; epoch_sec "
+        f"{[round(r['epoch_sec'], 3) for r in epochs2]}; step waited on the "
+        f"loader {[round(w, 3) for w in summary['loader_wait_sec']]} s an "
+        f"epoch; launches {launches['train_s2']}")
+
+    # ---- the predict CLI on stage 2's last.ckpt, one batch ----
+    cfg = load_config("predict_default", [
+        f"main.checkpoint_path={run2 / 'checkpoints/last.ckpt'}",
+        f"datamodule.zarr_path={tmp / 'data.zarr'}",
+        f"datamodule.batch_size={B}", f"datamodule.num_pc_sample={N}",
+        "datamodule.volume_size=32", f"datamodule.dataset_split={TRAIN_SPLIT}",
+        f"prediction.volume_size={VOL}", f"prediction.device={dev}"])
+    run3, wall3 = run_cli(predict.main, cfg, "train_predict")
+    check(launches["train_predict"] == {"fps": 2, "sa_tc": 2,
+                                        "dense_decode_tc": 1, "ggm": 1},
+          f"predict launches {launches['train_predict']}")
+    pred = json.loads((run3 / "summary.json").read_text())
+    check(pred["garments"] == len(dm1.test_idxs), "predict garments")
+    log(f"predict CLI on the trained stage-2 checkpoint: "
+        f"{pred['garments']} garments in {wall3:.1f} s")
+
+    # ---- a fixed full-width batch per stage, outside the CLIs ----
+    batch1 = next(iter(dm1.train_dataloader()))
+    cfg_m1 = pointnet2_nocs.PointNet2NOCSConfig()
+    model1 = pointnet2_nocs.PointNet2NOCS(cfg_m1)
+    init_like_jax_(model1, torch.Generator().manual_seed(0))
+    t1 = timed_steps(
+        dev, model1.to(dev),
+        lambda o, b: pointnet2_nocs.get_metrics(cfg_m1, o, b)[0],
+        lambda b, g: model1(b["x"], b["pos"], generator=g), batch1,
+        LEARN_STEPS, (WARM_STEPS, WARM_STEPS + TIMED_STEPS))
+    check(t1["step"] == {"fps": 2, "sa_tc": 0, "dense_decode_tc": 0,
+                         "ggm": 0}, f"stage-1 train step launches {t1}")
+    check(t1["eval"] == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 0,
+                         "ggm": 0}, f"stage-1 eval step launches {t1}")
+    check(t1["losses"][-1] < t1["losses"][0],
+          f"stage 1 does not learn one batch: {t1['losses']}")
+    del model1
+    dm2 = ConvImplicitWNFDataModule(**dm2cfg)
+    dm2.prepare_data()
+    batch2 = next(iter(dm2.train_dataloader()))
+    cfg_m2 = pipeline.PipelineConfig()
+    model2 = pipeline.ConvImplicitWNFPipeline(cfg_m2)
+    init_like_jax_(model2, torch.Generator().manual_seed(0))
+    model2.pointnet2_nocs.requires_grad_(False)
+    t2 = timed_steps(
+        dev, model2.to(dev),
+        lambda o, b: pipeline.pipeline_loss(cfg_m2, o, b),
+        lambda b, g: model2(b), batch2, WARM_STEPS + TIMED_STEPS + 1,
+        (WARM_STEPS, WARM_STEPS + TIMED_STEPS))
+    check(t2["step"] == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 0,
+                         "ggm": 0}, f"stage-2 train step launches {t2}")
+    del model2
+    for stage, t, b in ((1, t1, batch1), (2, t2, batch2)):
+        n = len(b["x"])
+        log(f"train stage {stage} on {gpu}, a fixed batch of {n}: "
+            f"{t['ms']:.3f} ms a step ({n / t['ms'] * 1e3:.2f} samples/s), "
+            f"peak device memory {t['peak'] / 2 ** 30:.3f} GiB; launches a "
+            f"train step {t['step']}, an eval step {t['eval']}")
+    log(f"stage 1 on one batch over {LEARN_STEPS} steps: loss "
+        f"{t1['losses'][0]:.4f} -> {t1['losses'][-1]:.4f}")
+
+    worst = phase_train_reference(dev)
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "reference": worst,
+            "ms": {1: t1["ms"], 2: t2["ms"]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1262,22 +1626,24 @@ def main() -> int:
         launches["cli"], cli_run = phase_predict_cli(dev, tmp)
         phase_eval(cli_run, tmp)
         launches.update(phase_variants(dev, tmp))
+        launches.update(phase_train(dev, tmp)["launches"])
     phase_serve(dev)
     phase_small_reference(dev)
 
     # launches over the driven paths: the main path at 'high', the predict
-    # CLI and the two variant batches (all at 'high') for the 'high' decode
-    # row, the main path's 'highest' batch for the 'highest' row, all of
-    # them for the rest
-    at_high = ("high", "cli", "holes", "task_space")
+    # CLI, the two variant batches and the predict run on the trained
+    # checkpoint (all at 'high') for the 'high' decode row, the main path's
+    # 'highest' batch for the 'highest' row, all of them and the two train
+    # CLIs for the rest
+    at_high = ("high", "cli", "holes", "task_space", "train_predict")
     for k, row in rows.items():
         if k == "dense_decode_tc":
             row["launches"] = sum(launches[p][k] for p in at_high)
         elif k == "dense_decode_tc_highest":
             row["launches"] = launches["highest"]["dense_decode_tc"]
         else:
-            row["launches"] = sum(launches[p][k]
-                                  for p in at_high + ("highest",))
+            row["launches"] = sum(launches[p][k] for p in at_high + (
+                "highest", "train_s1", "train_s2"))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

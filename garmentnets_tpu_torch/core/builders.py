@@ -1,24 +1,24 @@
-"""Checkpoint hparams <-> the port's model configs (copy of
-garmentnets_tpu/core/builders.py::pipeline_config_from_hparams and
-pipeline_hparams, with the key clean-up of
+"""Config dicts <-> the port's model configs (copy of
+garmentnets_tpu/core/builders.py, with the key clean-up of
 tools/convert_checkpoint.py::_pipeline_hparams_from_torch).
 
-The hparams are the reference's nested constructor schema, as a Lightning
-checkpoint's `hyper_parameters` carries them. The port keeps what
-inference reads, every model variant included (the aggregator's include
-flags, the mc-surface head and its `mc_surface_loss_weight`,
-`volume_classification`, `volume_task_space`); the other training-only
-keys (learning rate, loss type and the other weights, dropout, symmetry
-axis) are accepted and dropped.
+The hparams are the reference's constructor schema, as a Lightning
+checkpoint's `hyper_parameters` carries them: flat for stage 1, nested
+(`pointnet2_params`, `volume_agg_params`, ...) for the pipeline. Every
+key is kept, the training ones (learning rate, loss type and weights,
+dropout, symmetry axis) included, so a checkpoint's hparams rebuild the
+model and its loss. The logging keys of a released reference checkpoint
+are dropped.
 """
 from __future__ import annotations
-
-import dataclasses
 
 from garmentnets_tpu_torch.models.pipeline import PipelineConfig
 from garmentnets_tpu_torch.models.pointnet2_nocs import PointNet2NOCSConfig
 
-_PN2_KEYS = tuple(f.name for f in dataclasses.fields(PointNet2NOCSConfig))
+_PN2_KEYS = ("feature_dim", "batch_norm", "dropout", "sa1_ratio", "sa1_r",
+             "sa2_ratio", "sa2_r", "fp3_k", "fp2_k", "fp1_k", "nocs_bins",
+             "symmetry_axis", "learning_rate", "nocs_loss_weight",
+             "grip_point_loss_weight")
 # logging keys of the reference's Lightning modules, not constructor args
 _LOGGING_KEYS = ("vis_per_items", "max_vis_per_epoch_train",
                  "max_vis_per_epoch_val", "batch_size")
@@ -34,17 +34,28 @@ def clean_hparams(hparams: dict) -> dict:
     return hp
 
 
-def pipeline_config_from_hparams(hp: dict) -> PipelineConfig:
-    """Reference-schema hparams (config/train_pipeline_default.yaml:39-74)
-    -> PipelineConfig."""
-    hp = clean_hparams(hp)
-    pn2 = PointNet2NOCSConfig(**{k: v for k, v in
-                                 hp["pointnet2_params"].items()
-                                 if k in _PN2_KEYS})
-    agg = hp["volume_agg_params"]
-    unet = hp["unet3d_params"]
+def build_pointnet2_config(model_cfg: dict) -> PointNet2NOCSConfig:
+    """The `model` block of configs/train_pointnet2_default.yaml, or a
+    stage-1 checkpoint's hparams -> PointNet2NOCSConfig (other keys are
+    ignored)."""
+    return PointNet2NOCSConfig(**{k: model_cfg[k] for k in _PN2_KEYS
+                                  if k in model_cfg})
+
+
+def pointnet2_hparams(cfg: PointNet2NOCSConfig) -> dict:
+    return {k: getattr(cfg, k) for k in _PN2_KEYS}
+
+
+def build_pipeline_config(conv_cfg: dict,
+                          pointnet2_cfg: PointNet2NOCSConfig
+                          ) -> PipelineConfig:
+    """The `conv_implicit_model` block of configs/train_pipeline_default.yaml
+    (the reference schema, config/train_pipeline_default.yaml:39-74) and
+    the stage-1 config -> PipelineConfig."""
+    agg = conv_cfg["volume_agg_params"]
+    unet = conv_cfg["unet3d_params"]
     return PipelineConfig(
-        pointnet2=pn2,
+        pointnet2=pointnet2_cfg,
         volume_agg_nn_channels=tuple(agg["nn_channels"]),
         volume_agg_batch_norm=agg.get("batch_norm", True),
         grid_shape=tuple(agg.get("grid_shape", (32, 32, 32))),
@@ -59,24 +70,36 @@ def pipeline_config_from_hparams(hp: dict) -> PipelineConfig:
         unet_num_groups=unet.get("num_groups", 8),
         unet_num_levels=unet.get("num_levels", 4),
         volume_decoder_channels=tuple(
-            hp["volume_decoder_params"]["nn_channels"]),
+            conv_cfg["volume_decoder_params"]["nn_channels"]),
         surface_decoder_channels=tuple(
-            hp["surface_decoder_params"]["nn_channels"]),
+            conv_cfg["surface_decoder_params"]["nn_channels"]),
         mc_surface_decoder_channels=tuple(
-            hp.get("mc_surface_decoder_params",
-                   {"nn_channels": (128, 256, 256, 1)})["nn_channels"]),
-        decoder_batch_norm=hp["volume_decoder_params"].get(
+            conv_cfg.get("mc_surface_decoder_params",
+                         {"nn_channels": (128, 256, 256, 1)})["nn_channels"]),
+        decoder_batch_norm=conv_cfg["volume_decoder_params"].get(
             "batch_norm", True),
-        mc_surface_loss_weight=hp.get("mc_surface_loss_weight", 0.0),
-        volume_classification=hp.get("volume_classification", False),
-        volume_task_space=hp.get("volume_task_space", False),
+        learning_rate=conv_cfg.get("learning_rate", 1e-4),
+        loss_type=conv_cfg.get("loss_type", "l2"),
+        volume_loss_weight=conv_cfg.get("volume_loss_weight", 1.0),
+        surface_loss_weight=conv_cfg.get("surface_loss_weight", 1.0),
+        mc_surface_loss_weight=conv_cfg.get("mc_surface_loss_weight", 0.0),
+        volume_classification=conv_cfg.get("volume_classification", False),
+        volume_task_space=conv_cfg.get("volume_task_space", False),
     )
 
 
+def pipeline_config_from_hparams(hp: dict) -> PipelineConfig:
+    """A pipeline checkpoint's hparams -> PipelineConfig."""
+    hp = clean_hparams(hp)
+    return build_pipeline_config(
+        hp, build_pointnet2_config(hp["pointnet2_params"]))
+
+
 def pipeline_hparams(cfg: PipelineConfig) -> dict:
-    """PipelineConfig -> the reference's nested hparams schema."""
+    """PipelineConfig -> the reference's nested hparams schema (the JAX
+    package's pipeline_hparams)."""
     return {
-        "pointnet2_params": dataclasses.asdict(cfg.pointnet2),
+        "pointnet2_params": pointnet2_hparams(cfg.pointnet2),
         "volume_agg_params": {
             "nn_channels": list(cfg.volume_agg_nn_channels),
             "batch_norm": cfg.volume_agg_batch_norm,
@@ -105,6 +128,10 @@ def pipeline_hparams(cfg: PipelineConfig) -> dict:
             "nn_channels": list(cfg.mc_surface_decoder_channels),
             "batch_norm": cfg.decoder_batch_norm,
         },
+        "learning_rate": cfg.learning_rate,
+        "loss_type": cfg.loss_type,
+        "volume_loss_weight": cfg.volume_loss_weight,
+        "surface_loss_weight": cfg.surface_loss_weight,
         "mc_surface_loss_weight": cfg.mc_surface_loss_weight,
         "volume_classification": cfg.volume_classification,
         "volume_task_space": cfg.volume_task_space,

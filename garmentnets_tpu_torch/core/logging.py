@@ -5,7 +5,7 @@ The port's copy of garmentnets_tpu/core/logging.py.
 Replaces Weights & Biases (reference logs scalars/images/3D objects to wandb,
 SURVEY.md §5 "Metrics/logging") with local artifacts of the same content:
 - metrics.jsonl: one JSON object per log call {step, ...scalars},
-- media/: PNG image dumps,
+- media/: PNG image dumps (written with zlib, no PIL),
 - summary.json written on close.
 
 The interface mirrors the wandb subset the harness uses (`Logger` protocol);
@@ -19,10 +19,32 @@ from __future__ import annotations
 
 import json
 import pathlib
+import struct
 import time
+import zlib
 from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit RGB or RGBA image [H, W, 3|4] uint8 as PNG bytes (the
+    standard library's zlib; the images need no PIL)."""
+    h, w, c = img.shape
+    if img.dtype != np.uint8 or c not in (3, 4):
+        raise ValueError(f"png_bytes needs uint8 [H, W, 3|4], got "
+                         f"{img.dtype} {img.shape}")
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),          # filter 0
+                           np.ascontiguousarray(img).reshape(h, w * c)], 1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 @runtime_checkable
@@ -66,9 +88,8 @@ class RunLogger:
         self.media_dir.mkdir(exist_ok=True)
         if img.dtype != np.uint8:
             img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-        from PIL import Image
         tag = f"{name}_{step}" if step is not None else name
-        Image.fromarray(img).save(self.media_dir / f"{tag}.png")
+        (self.media_dir / f"{tag}.png").write_bytes(png_bytes(img))
 
     def close(self):
         with (self.run_dir / "summary.json").open("w") as f:

@@ -1,14 +1,17 @@
 """Stage-2 pipeline: volume aggregation -> 3D U-Net -> implicit WNF decoders,
-eval mode (torch port of garmentnets_tpu/models/pipeline.py).
+and its training loss (torch port of garmentnets_tpu/models/pipeline.py).
 
-The frozen stage-1 network runs in eval mode. Submodule names follow the
-reference Lightning layout (`pointnet2_nocs`, `volume_agg.local_nn`,
-`unet_3d.abstract_3d_unet`, `volume_decoder.mlp`, `surface_decoder.mlp`,
-`mc_surface_decoder.mlp`). Every inference variant of the JAX
+The frozen stage-1 network always runs in eval mode and without gradients,
+also when the pipeline is in training mode: its set abstraction then takes
+the fused kernel on the card, its BatchNorm statistics never move and it
+gets no gradient (the JAX package stops the gradient there). Submodule
+names follow the reference Lightning layout (`pointnet2_nocs`,
+`volume_agg.local_nn`, `unet_3d.abstract_3d_unet`, `volume_decoder.mlp`,
+`surface_decoder.mlp`, `mc_surface_decoder.mlp`). Every variant of the JAX
 `PipelineConfig` is here: the aggregator's include flags, the task-space
-volume (`volume_task_space`) and the mc-surface (hole) head
-(`mc_surface_loss_weight > 0`); `volume_classification` changes only the
-training loss, which is not ported yet.
+volume (`volume_task_space`), the mc-surface (hole) head
+(`mc_surface_loss_weight > 0`) and the BCE volume loss
+(`volume_classification`).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from garmentnets_tpu_torch.models.losses import masked_mean
 from garmentnets_tpu_torch.models.mlp import PointMLP
 from garmentnets_tpu_torch.models.pointnet2_nocs import (
     PointNet2NOCS, PointNet2NOCSConfig, logits_to_nocs_bins)
@@ -99,9 +103,12 @@ class PipelineConfig:
     surface_decoder_channels: Tuple[int, ...] = (128, 256, 256, 3)
     mc_surface_decoder_channels: Tuple[int, ...] = (128, 256, 256, 1)
     decoder_batch_norm: bool = True
-    # training weights that select an inference variant: a positive
-    # mc-surface weight adds the hole head; volume_classification changes
-    # only the volume loss (JAX models/pipeline.py:251)
+    # training parameters (reference ctor :152-177); a positive mc-surface
+    # weight also adds the hole head
+    learning_rate: float = 1e-4
+    loss_type: str = "l2"
+    volume_loss_weight: float = 1.0
+    surface_loss_weight: float = 1.0
     mc_surface_loss_weight: float = 0.0
     volume_classification: bool = False
     volume_task_space: bool = False
@@ -132,9 +139,17 @@ class ConvImplicitWNFPipeline(nn.Module):
             self.mc_surface_decoder = ImplicitWNFDecoder(
                 c.mc_surface_decoder_channels, c.decoder_batch_norm)
 
+    def train(self, mode: bool = True):
+        """Training mode for everything but the frozen stage 1."""
+        super().train(mode)
+        self.pointnet2_nocs.train(False)
+        return self
+
     def pointnet2_forward(self, x: torch.Tensor, pos: torch.Tensor) -> dict:
-        """Frozen stage 1: NOCS bins and confidence from the logits."""
-        result = self.pointnet2_nocs(x, pos)
+        """Frozen stage 1 (eval mode, no gradient): NOCS bins and
+        confidence from the logits."""
+        with torch.no_grad():
+            result = self.pointnet2_nocs(x, pos)
         pred_nocs, confidence = logits_to_nocs_bins(
             self.cfg.pointnet2, result["per_point_logits"])
         result["nocs_data"] = {
@@ -187,3 +202,64 @@ class ConvImplicitWNFPipeline(nn.Module):
         new_result["nocs_data"] = dict(pointnet2_result["nocs_data"],
                                        pos=new_pos)
         return new_result
+
+    # full forward (reference :314-338) ----------------------------------
+    def forward(self, batch: dict) -> dict:
+        """The training forward: batch holds x, pos [B, N, 3],
+        volume_query_points, surf_query_points (and mc_surf_query_points
+        for the hole head, cloth_sim_aabb for task space) as tensors."""
+        result = self.pointnet2_forward(batch["x"], batch["pos"])
+        if self.cfg.volume_task_space:
+            result = self.apply_volume_task_space(
+                batch["pos"], batch["cloth_sim_aabb"], result)
+        feature_volume = self.unet3d_forward(result["nocs_data"])
+        out = {
+            "pointnet2_result": result,
+            "feature_volume": feature_volume,
+            "pred_volume_value": self.volume_decoder_forward(
+                feature_volume, batch["volume_query_points"]),
+            "pred_sim_points": self.surface_decoder_forward(
+                feature_volume, batch["surf_query_points"]),
+        }
+        if self.cfg.has_mc_surface_decoder:
+            out["pred_mc_surface_logits"] = self.mc_surface_decoder_forward(
+                feature_volume, batch["mc_surf_query_points"])
+        return out
+
+
+def pipeline_loss(cfg: PipelineConfig, result: dict, batch: dict) -> dict:
+    """Weighted volume + surface (+ mc-surface BCE) loss (reference infer
+    :405-444): l2 or smooth_l1, or BCE on logits for the volume with
+    volume_classification. Rows with batch['_valid_mask'] == 0 carry no
+    weight."""
+    mask = batch.get("_valid_mask")
+
+    def criterion(pred, gt):
+        if cfg.loss_type == "l2":
+            return masked_mean((pred - gt) ** 2, mask)
+        if cfg.loss_type == "smooth_l1":
+            d = (pred - gt).abs()
+            return masked_mean(torch.where(d < 1.0, 0.5 * d * d, d - 0.5),
+                               mask)
+        raise ValueError(f"invalid loss_type {cfg.loss_type!r}")
+
+    def bce_logits(logits, target):
+        return masked_mean(torch.clamp(logits, min=0) - logits * target
+                           + torch.log1p(torch.exp(-logits.abs())), mask)
+
+    pred_vol = result["pred_volume_value"]
+    gt_vol = batch["gt_volume_value"]
+    vol_loss = (bce_logits(pred_vol, gt_vol) if cfg.volume_classification
+                else criterion(pred_vol, gt_vol))
+    surf_loss = criterion(result["pred_sim_points"], batch["gt_sim_points"])
+    losses = {
+        "volume_loss": cfg.volume_loss_weight * vol_loss,
+        "surface_loss": cfg.surface_loss_weight * surf_loss,
+    }
+    if cfg.has_mc_surface_decoder:
+        losses["mc_surface_loss"] = cfg.mc_surface_loss_weight * bce_logits(
+            result["pred_mc_surface_logits"],
+            batch["is_query_point_on_surf"])
+    metrics = dict(losses)
+    metrics["loss"] = sum(losses.values())
+    return metrics

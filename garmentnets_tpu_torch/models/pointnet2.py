@@ -1,5 +1,5 @@
-"""PointNet++ set abstraction and feature propagation, dense-batch, eval mode
-(torch port of garmentnets_tpu/models/pointnet2.py).
+"""PointNet++ set abstraction and feature propagation, dense-batch (torch
+port of garmentnets_tpu/models/pointnet2.py).
 
 Module names follow the reference Lightning layout (`conv.local_nn` for the
 set-abstraction MLP, `nn` for the global SA and FP MLPs) so a reference
@@ -32,7 +32,9 @@ class SAModule(nn.Module):
     """FPS -> ball query -> MLP over concat(x_j, p_j - p_i) -> masked max.
 
     In eval mode the last three steps are ops/set_abstraction.sa_fused (the
-    fused CUDA kernel for a CUDA tensor); in training mode, stock ops."""
+    fused CUDA kernel for a CUDA tensor); in training mode, stock ops, the
+    MLP's batch statistics taken over the valid neighbour slots only (the
+    kernel has no backward, as the JAX package's has none)."""
 
     def __init__(self, ratio: float, radius: float,
                  mlp_channels: Sequence[int], max_neighbors: int = 64,
@@ -48,8 +50,9 @@ class SAModule(nn.Module):
     def folded_layers(self, device: torch.device):
         """The MLP folded for eval mode, (K, b, g, s) per layer, and on the
         card its packed image for the kernel (None on the CPU). Cached until
-        a parameter or buffer of the MLP changes: load_state_dict copies in
-        place, which bumps the tensors' version counters."""
+        a parameter or buffer of the MLP changes: load_state_dict, an
+        optimizer step and the training-mode running-statistics update all
+        write in place, which bumps the tensors' version counters."""
         mlp = self.conv.local_nn
         key = (str(device), tuple((t.data_ptr(), t._version) for t in
                                   (*mlp.parameters(), *mlp.buffers())))
@@ -71,12 +74,12 @@ class SAModule(nn.Module):
             layers, packed = self.folded_layers(x.device)
             return sa_fused(x, pos, centers, nbr_idx, nbr_mask, layers,
                             packed), centers
-        # training mode: stock ops (the kernel has no backward)
-        # one gather of the combined [x | pos] rows
+        # training mode: stock ops, one gather of the combined [x | pos] rows
         C = x.shape[-1]
         nbr = gather_rows(torch.cat([x, pos], dim=-1), nbr_idx)    # [B,M,K,C+3]
         rel = nbr[..., C:] - centers[:, :, None, :]
-        h = self.conv.local_nn(torch.cat([nbr[..., :C], rel], dim=-1))
+        h = self.conv.local_nn(torch.cat([nbr[..., :C], rel], dim=-1),
+                               mask=nbr_mask)
         # masked max over neighbor slots (>= 1 valid: the center itself)
         h = h.masked_fill(~nbr_mask[..., None], float("-inf"))
         return h.amax(dim=2), centers

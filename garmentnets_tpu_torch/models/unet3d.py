@@ -7,7 +7,11 @@ the reference Lightning layout (`abstract_3d_unet.encoders.{i}.basic_module.
 SingleConv{1,2}.{groupnorm,conv,batchnorm}`, `final_conv`).
 
 Conv3d runs with TF32 off: cuDNN's TF32 default keeps ~3 decimal digits
-and would break the f32 parity bar. ResidualUNet3D waits for a later slice.
+and would break the f32 parity bar. 'gcr' (the shipped order) has no
+running statistics; an order with 'b' normalizes with BatchNorm3d's batch
+statistics in training mode and moves its running statistics (momentum
+0.1, unbiased variance), as the JAX MaskedBatchNorm does without a mask.
+ResidualUNet3D waits for a later slice.
 """
 from __future__ import annotations
 

@@ -392,3 +392,86 @@ def test_variant_engine_card_matches_cpu(dev, variant):
         for k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-3,
                                        err_msg=k)
+
+
+def test_train_step_card_matches_cpu(dev):
+    """One train step of each stage at the small configuration on the
+    card against the CPU (chip_smoke.phase_train_reference: the loss,
+    gradients and running statistics within their bars, stage 2's NOCS
+    bins identical)."""
+    worst = chip_smoke.phase_train_reference(dev)
+    assert set(worst) == {1, 2} and max(worst.values()) <= 1.0
+
+
+def test_train_launch_counts_per_step(dev):
+    """A stage-1 train step launches FPS twice and no SA kernel (training
+    mode's SA is stock ops); a stage-1 eval step and a stage-2 train step
+    (its frozen stage 1 in eval mode) launch FPS and SA twice each."""
+    from garmentnets_tpu_torch.core.random_weights import init_like_jax_
+    from garmentnets_tpu_torch.harness.training import (
+        batch_to_device, make_adam, make_train_fns)
+    from garmentnets_tpu_torch.models import pipeline, pointnet2_nocs
+    counts = {}
+    for stage in (1, 2):
+        cfg = chip_smoke.train_cfg(stage, dropout=True)
+        if stage == 1:
+            model = pointnet2_nocs.PointNet2NOCS(cfg)
+
+            def apply_fn(b, g, model=model):
+                return model(b["x"], b["pos"], generator=g)
+
+            def loss_fn(o, b, cfg=cfg):
+                return pointnet2_nocs.get_metrics(cfg, o, b)[0]
+        else:
+            model = pipeline.ConvImplicitWNFPipeline(cfg)
+            model.pointnet2_nocs.requires_grad_(False)
+
+            def apply_fn(b, g, model=model):
+                return model(b)
+
+            def loss_fn(o, b, cfg=cfg):
+                return pipeline.pipeline_loss(cfg, o, b)
+        init_like_jax_(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        train_step, eval_step = make_train_fns(model, apply_fn, loss_fn,
+                                               make_adam(model, 1e-3))
+        b = batch_to_device(chip_smoke.train_batch(stage), dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        train_step(b, gen)
+        for kind, fn in (("train", lambda: train_step(b, gen)),
+                         ("eval", lambda: eval_step(b))):
+            _build.reset_launch_counts()
+            fn()
+            counts[stage, kind] = (_build.LAUNCHES["fps"],
+                                   _build.LAUNCHES["sa_tc"])
+    assert counts == {(1, "train"): (2, 0), (1, "eval"): (2, 2),
+                      (2, "train"): (2, 2), (2, "eval"): (2, 2)}
+
+
+def test_validation_after_step_uses_stepped_weights(dev):
+    """After a train step (batch statistics, Adam) the eval-mode set
+    abstraction on the card folds and packs the new weights: its output
+    equals a fresh module's loaded with them, and differs from before."""
+    from garmentnets_tpu_torch.harness.training import make_adam
+    from garmentnets_tpu_torch.models import pointnet2_nocs
+    cfg = chip_smoke.train_cfg(1)
+    torch.manual_seed(0)
+    model = pointnet2_nocs.PointNet2NOCS(cfg).to(dev)
+    b = chip_smoke.train_batch(1)
+    x, pos = (torch.from_numpy(b[k]).to(dev) for k in ("x", "pos"))
+    model.eval()
+    with torch.no_grad():
+        before = model.sa1_module(x, pos)[0]
+    opt = make_adam(model, 1e-2)
+    model.train()
+    model(x, pos)["per_point_logits"].square().mean().backward()
+    opt.step()
+    model.eval()
+    fresh = pointnet2_nocs.PointNet2NOCS(cfg).to(dev)
+    fresh.load_state_dict(model.state_dict())
+    fresh.eval()
+    with torch.no_grad():
+        after = model.sa1_module(x, pos)[0]
+        ref = fresh.sa1_module(x, pos)[0]
+    assert torch.equal(after, ref)
+    assert not torch.equal(after, before)

@@ -124,9 +124,12 @@ def test_sa_module_eval_matches_jax_pallas_path(tiny_pipeline, monkeypatch,
 def test_sa_module_eval_uses_sa_fused_and_train_uses_stock_ops(
         tiny_pipeline, monkeypatch):
     """Eval mode goes through ops/set_abstraction.sa_fused with the folded
-    layers; training mode keeps the stock-op path, which computes the same
-    function (the port's PointMLP normalizes with running statistics)."""
-    _, model = tiny_pipeline
+    layers; training mode keeps the stock-op path, which normalizes with
+    the batch statistics of the valid neighbour slots: its output and
+    updated running statistics equal the JAX SAModule's in training mode
+    (within 1e-5 of the largest output; statistics rtol 1e-5, atol 1e-5),
+    and the module's state is restored after."""
+    variables, model = tiny_pipeline
     module = model.pointnet2_nocs.sa1_module
     x = pu.inputs()
     feat, pos = torch.from_numpy(x["x"]), torch.from_numpy(x["pos"])
@@ -137,15 +140,34 @@ def test_sa_module_eval_uses_sa_fused_and_train_uses_stock_ops(
         return sa_fused(*args)
 
     monkeypatch.setattr(torch_p2, "sa_fused", spy)
+    state = {k: v.clone() for k, v in module.state_dict().items()}
     with torch.no_grad():
-        out_eval, _ = module(feat, pos)
+        module(feat, pos)
         module.train()
         try:
             out_train, _ = module(feat, pos)
+            stats_train = {k: v.clone() for k, v in
+                           module.state_dict().items() if "running" in k}
         finally:
             module.eval()
+            module.load_state_dict(state)
     assert calls == [3]                      # one eval call, three layers
-    torch.testing.assert_close(out_train, out_eval, rtol=1e-5, atol=1e-5)
+    params = variables["params"]["pointnet2_nocs"]["sa1"]
+    (ref, _), mut = jax_p2.SAModule(0.5, pu.SA1_R, (6, 64, 64, 128)).apply(
+        {"params": params,
+         "batch_stats": variables["batch_stats"]["pointnet2_nocs"]["sa1"]},
+        jnp.asarray(x["x"]), jnp.asarray(x["pos"]), train=True,
+        mutable=["batch_stats"])
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(out_train.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    for i, st in mut["batch_stats"]["mlp"].items():
+        layer = int(i.split("_")[1])
+        for ours, theirs in (("running_mean", "mean"),
+                             ("running_var", "var")):
+            np.testing.assert_allclose(
+                stats_train[f"conv.local_nn.{layer}.2.{ours}"].numpy(),
+                np.asarray(st[theirs]), rtol=1e-5, atol=1e-5)
 
 
 def _case(B, N, M, K, Cin, chans, heavy):
