@@ -38,13 +38,22 @@ Needs one CUDA card; exits non-zero without one. Phases, each fatal:
      a dataset with task-space volumes, with launch counts per batch; then
      the eval CLI on each, the hole run with its logits as the value key
      and the grip-point, Hausdorff and geodesic metrics on;
-  8. the server: PredictService + make_http_server at the same width on a
+  8. the large-volume path at 256^3: the decode and the ggm at S=256
+     against their plain versions, PredictEngine with the straddle masks
+     on by default (their bytes against the CPU's, masked host MC
+     identical to unmasked), device normals (verts, codes against the
+     CPU's, angles against host normals), stage times, garments/s and
+     peak memory; the predict CLI at prediction.volume_size=256 with
+     prediction.device_normals=true on one batch; ResidualUNet3D on the
+     card against the CPU;
+  9. the server: PredictService + make_http_server at the same width on a
      checkpoint written by save_pipeline_checkpoint, 24 garments from 4
      concurrent clients through predict_remote, with launch counts per
      device batch, the overlap of host MC with the next encode, and one
      request against a direct engine run; then the engine at a tiny size
      on the card against the CPU path at 'highest' and 'high';
-  9. a `kernels` JSON line, the nvidia-smi line, and the final JSON line.
+  10. a `kernels` JSON line, the nvidia-smi line, and the final JSON
+     line.
 """
 from __future__ import annotations
 
@@ -218,6 +227,42 @@ def sa_ops(mask, layers) -> float:
     return float(mask.sum()) * per_slot
 
 
+def log_decode_time(tier, fv, z, packed, widths, S, ms, pms) -> tuple:
+    """Log the tensor-core decode's time at tier `tier` and volume S
+    against its bound, the larger of its products on the tensor cores, its
+    CUDA-core work and its bytes; returns (bound ms, bound_by)."""
+    passes = TC_PASSES[tier]
+    Bv, G, c1 = fv.shape[0], fv.shape[1], widths[1]
+    vox = Bv * S ** 3
+    # the trilinear upsample at its separable minimum: three 2-tap passes
+    # (3 flops per output channel) producing S*G*G, S*S*G and S^3 points
+    up_ops = 3 * c1 * Bv * (S * G * G + S * S * G + S ** 3)
+    hidden = list(zip(widths[1:-2], widths[2:-1]))
+    tc_ops = vox * passes * sum(2 * a * b_ for a, b_ in hidden)
+    # CUDA cores: the separable upsample, the first affine, the bf16
+    # splits of every hidden layer's input (one conversion a part and a
+    # subtraction between parts), each epilogue and the head
+    cc_ops = up_ops + vox * (
+        3 * c1 + TC_SPLIT_OPS[tier] * sum(a for a, _ in hidden)
+        + 3 * sum(b_ for _, b_ in hidden) + 2 * widths[-2] + 3)
+    tc_bytes = z.numel() * 4 + vox * 4 + packed.wts.numel() * 2 + sum(
+        t.numel() * 4 for t in (packed.aff0, packed.epi, packed.head))
+    t_tc = tc_ops / BF16_FLOPS * 1e3
+    t_cc = cc_ops / F32_FLOPS * 1e3
+    t_b = tc_bytes / HBM_BYTES_PER_S * 1e3
+    bnd = max(t_tc, t_cc, t_b)
+    by = "bytes" if t_b >= max(t_tc, t_cc) else "operations"
+    which = ("bytes" if by == "bytes" else "tensor-core operations"
+             if t_tc >= t_cc else "CUDA-core operations")
+    log(f"dense decode tc {tier} at {S}^3: kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms, bound {bnd:.3f} ms ({which}; tensor cores "
+        f"{t_tc:.3f} ms for {tc_ops / 1e12:.3f} TFLOP in {passes} bf16 "
+        f"passes, CUDA cores {t_cc:.3f} ms, bytes {t_b:.4f} ms), "
+        f"{tc_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the tensor cores "
+        f"achieved")
+    return bnd, by
+
+
 # ---------------------------------------------------------------------------
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at full-width shapes."""
@@ -294,16 +339,9 @@ def phase_kernels(dev) -> dict:
     log(f"dense decode check field: output std {std:.3e}, range "
         f"[{float(p.min()):.3f}, {float(p.max()):.3f}]")
     check(std >= 0.1, "dense decode check field is flat")
-    vox = B * VOL ** 3
-    G, c1 = fv.shape[1], widths[1]
-    # the trilinear upsample at its separable minimum: three 2-tap passes
-    # (3 flops per output channel) producing S*G*G, S*S*G and S^3 points
-    up_ops = 3 * c1 * B * (VOL * G * G + VOL * VOL * G + VOL ** 3)
-    hidden = list(zip(widths[1:-2], widths[2:-1]))
     tc = {}
     for tier in ("highest", "high", "default"):
         lim_plain, lim_f32 = TC_LIMITS[tier]
-        passes = TC_PASSES[tier]
         packed = pack_decoder(layers, tier)
         k = dense_decode_tc_cuda(z, packed, VOL)
         pt = dense_decode_plain(fv, layers, VOL, tier,
@@ -331,28 +369,7 @@ def phase_kernels(dev) -> dict:
         ms = time_ms(lambda: dense_decode_tc_cuda(z, packed, VOL), 5)
         # the plain version of the tier ('highest': f32)
         pms = time_ms(lambda: dense_decode_plain(fv, layers, VOL, tier), 2)
-        tc_ops = vox * passes * sum(2 * a * b_ for a, b_ in hidden)
-        # CUDA cores: the separable upsample, the first affine, the bf16
-        # splits of every hidden layer's input (one conversion a part and a
-        # subtraction between parts), each epilogue and the head
-        cc_ops = up_ops + vox * (
-            3 * c1 + TC_SPLIT_OPS[tier] * sum(a for a, _ in hidden)
-            + 3 * sum(b_ for _, b_ in hidden) + 2 * widths[-2] + 3)
-        tc_bytes = z.numel() * 4 + vox * 4 + packed.wts.numel() * 2 + sum(
-            t.numel() * 4 for t in (packed.aff0, packed.epi, packed.head))
-        t_tc = tc_ops / BF16_FLOPS * 1e3
-        t_cc = cc_ops / F32_FLOPS * 1e3
-        t_b = tc_bytes / HBM_BYTES_PER_S * 1e3
-        bnd = max(t_tc, t_cc, t_b)
-        by = "bytes" if t_b >= max(t_tc, t_cc) else "operations"
-        which = ("bytes" if by == "bytes" else "tensor-core operations"
-                 if t_tc >= t_cc else "CUDA-core operations")
-        log(f"dense decode tc {tier}: kernel {ms:.3f} ms, plain {pms:.3f} ms,"
-            f" bound {bnd:.3f} ms ({which}; tensor cores {t_tc:.3f} ms for "
-            f"{tc_ops / 1e12:.3f} TFLOP in {passes} bf16 passes, CUDA cores "
-            f"{t_cc:.3f} ms, bytes {t_b:.4f} ms), "
-            f"{tc_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the tensor cores "
-            f"achieved")
+        bnd, by = log_decode_time(tier, fv, z, packed, widths, VOL, ms, pms)
         tc[tier] = dict(err=err, ms=ms, pms=pms, bnd=bnd, by=by)
     for tier, name in (("high", "dense_decode_tc"),
                        ("highest", "dense_decode_tc_highest")):
@@ -1175,6 +1192,381 @@ def phase_variants(dev, tmp: pathlib.Path) -> dict:
     return all_launches
 
 
+VOL_LARGE = 256
+LARGE_BATCHES = 3      # large-volume batches; the first one warms up
+# device normals against the host kernel's (tests/test_normals.py's bars)
+NORMAL_MEAN_DEG, NORMAL_P95_DEG = 3.0, 8.0
+
+
+def cloth_batch(vol: int) -> np.ndarray:
+    """[B, vol, vol, vol]: cloth_like_wnf(vol) flipped along a different
+    subset of the three axes for each garment, so the meshes differ."""
+    w = cloth_like_wnf(vol)
+    return np.ascontiguousarray(np.stack(
+        [np.flip(w, tuple(a for a in range(3) if (i >> a) & 1))
+         for i in range(B)]))
+
+
+def code_agreement(got: np.ndarray, want: np.ndarray) -> tuple:
+    """(share of equal octahedral codes, largest difference of a byte)."""
+    diff = np.maximum(np.abs((got & 255) - (want & 255)),
+                      np.abs((got >> 8) - (want >> 8)))
+    return float((got == want).mean()), int(diff.max())
+
+
+def angles_deg(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.degrees(np.arccos(np.clip((a * b).sum(-1), -1.0, 1.0)))
+
+
+def phase_large_volume(dev, tmp: pathlib.Path) -> dict:
+    """The large-volume path at 256^3 on the card: PredictEngine at the
+    full width of PipelineConfig() (B=8, N=6000, 'high', sigma 0.5) with
+    seeded weights and a live head, straddle masks on by default, host MC
+    and the warp on cloth-like fields. (a) the decode and the ggm at
+    S=256 against their plain versions; (b) the masks' bytes against the
+    CPU's, and masked host MC identical to unmasked on all 8 garments; (c)
+    device normals: the same verts, codes against the CPU's, angles
+    against the host normals; (d) stage times of LARGE_BATCHES - 1 timed
+    batches after a warm-up and the peak memory; (e) the predict CLI at
+    prediction.volume_size=256 with device normals on one batch of 8;
+    (f) ResidualUNet3D on the card against the CPU. Returns the launch
+    counts of the engine's batches and of the CLI's."""
+    import torch
+    from garmentnets_tpu_torch.core.checkpoint import (
+        save_pipeline_checkpoint)
+    from garmentnets_tpu_torch.core.config import load_config
+    from garmentnets_tpu_torch.core.device import full_f32
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.data import zarrlite
+    from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule
+    from garmentnets_tpu_torch.harness import predict
+    from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
+    from garmentnets_tpu_torch.kernels import _build
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
+    from garmentnets_tpu_torch.kernels.ggm import ggm_cuda
+    from garmentnets_tpu_torch.models.pipeline import (
+        ConvImplicitWNFPipeline, PipelineConfig)
+    from garmentnets_tpu_torch.models.unet3d import ResidualUNet3D
+    from garmentnets_tpu_torch.ops.dense_decode import (
+        coarse_first_layer, dense_decode_plain)
+    from garmentnets_tpu_torch.ops.gaussian import (
+        gaussian_gradient_magnitude, ggm_plain, ggm_taps)
+    from garmentnets_tpu_torch.ops.isosurface import (
+        extract_active_bricks, pack_brick_pages, read_page_counts)
+    from garmentnets_tpu_torch.ops.normals import (
+        oct_decode_np, sample_gradient_normals_oct)
+
+    t_phase = time.perf_counter()
+    S = VOL_LARGE
+    name = torch.cuda.get_device_name(0)
+    gen = torch.Generator().manual_seed(3)
+
+    # ---- (a) the decode at S=256 ('high') and the ggm at W=256 ----
+    widths = (128, 256, 256, 1)
+    fv, layers = decode_inputs(gen, (B, 32, 32, 32), widths, dev)
+    z = coarse_first_layer(fv, layers).contiguous()
+    packed = pack_decoder(layers, "high")
+    k = dense_decode_tc_cuda(z, packed, S)
+    p = dense_decode_plain(fv, layers, S, "high")
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    log(f"large volume: dense decode tc high at {S}^3: max abs err "
+        f"{err:.3e} against the plain tier (limit "
+        f"{TC_LIMITS['high'][0]:.0e}), output std {float(p.std()):.3e}")
+    check(err <= TC_LIMITS["high"][0] and bool(torch.isfinite(k).all()),
+          f"dense decode tc at {S}^3 disagrees with its plain version")
+    del k, p
+    ms = time_ms(lambda: dense_decode_tc_cuda(z, packed, S), 3)
+    pms = time_ms(lambda: dense_decode_plain(fv, layers, S, "high"), 1, 0)
+    log_decode_time("high", fv, z, packed, widths, S, ms, pms)
+    del z, fv
+    vol = torch.from_numpy(cloth_like_wnf(S)).to(dev)
+    vol = (vol[None] + 0.02 * torch.rand(B, S, S, S, generator=gen).to(dev)
+           ).contiguous()
+    k0, k1 = ggm_taps(0.5)
+    k = ggm_cuda(vol, k0, k1)
+    p = ggm_plain(vol, 0.5)
+    check(torch.equal(k, p), f"ggm at W={S} is not bit-equal to ggm_plain "
+          f"(max abs err {float((k - p).abs().max()):.3e})")
+    gms = time_ms(lambda: ggm_cuda(vol, k0, k1), 10)
+    gpms = time_ms(lambda: ggm_plain(vol, 0.5), 2)
+    r = (len(k0) - 1) // 2
+    gbnd, gby = bound_ms(2 * vol.numel() * 4,
+                         vol.numel() * (8 * (2 * r + 1) * 2 + 6), F32_FLOPS)
+    log(f"large volume: ggm at W={S}: bit-equal to ggm_plain; kernel "
+        f"{gms:.3f} ms, plain {gpms:.3f} ms, bound {gbnd:.4f} ms ({gby}), "
+        f"{2 * vol.numel() * 4 / (gms * 1e-3) / 1e9:.0f} GB/s achieved")
+    del vol, k, p
+
+    # ---- the engines: masks on by default, the same without masks, and
+    # device normals ----
+    cfg = PipelineConfig()
+    model = ConvImplicitWNFPipeline(cfg)
+    seeded_init_(model, 0)
+    rng = np.random.RandomState(0)
+    x = rng.rand(B, N, 3).astype(np.float32)
+    pos = (rng.rand(B, N, 3) - 0.5).astype(np.float32)
+    live_head_(model, x, pos, dev)
+    kw = dict(volume_size=S, gradient_sigma=0.5, iso_level=0.5, device=dev)
+    engine = PredictEngine(cfg, model.state_dict(), return_volume=True, **kw)
+    plain = PredictEngine(cfg, model.state_dict(), cube_masks=False, **kw)
+    devnorm = PredictEngine(cfg, model.state_dict(), device_normals=True,
+                            **kw)
+    check(engine.cube_masks and devnorm.cube_masks
+          and not plain.cube_masks and not engine.device_normals,
+          f"straddle masks are not on by default at {S}^3")
+    cloth = torch.from_numpy(cloth_batch(S)).to(dev)
+    pages = {}
+    for key, eng in (("masked", engine), ("plain", plain)):
+        base, vals, counts = extract_active_bricks(
+            cloth, 0.5, eng.brick_cap, with_masks=eng.cube_masks)
+        pages[key] = pack_brick_pages(base, vals, eng.brick_page,
+                                      counts=counts)
+    cloth_counts = counts.cpu().numpy()
+    check(int(cloth_counts.max()) <= engine.brick_cap,
+          f"the cloth fields overflow the brick cap: {cloth_counts}")
+    page_mb = sum(pg.numel() for pg in pages["masked"]) / 1e6
+    log(f"large volume: cloth fields {cloth_counts.tolist()} shipped bricks "
+        f"(cap {engine.brick_cap}, {len(pages['masked'])} pages of "
+        f"{engine.brick_page} records, {page_mb:.2f} MB of 76-byte "
+        f"records a batch)")
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {k: [] for k in ("encode", "mc_masks", "mc_plain", "mc_devnorm",
+                              "warp", "warp_devnorm")}
+    overflows, real_counts = 0, []
+    for i in range(LARGE_BATCHES):
+        t0 = time.perf_counter()
+        enc = engine.encode(x, pos)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = read_page_counts(enc["active_pages"][0].cpu().numpy())
+        real_counts.append(counts.tolist())
+        overflows += int(counts.max() > engine.brick_cap)
+        # host MC and the warp run on the cloth fields, the warp's
+        # features and ggm are the network's
+        sub = dict(enc, active_pages=pages["masked"], wnf_volume=cloth)
+        m_masked = engine.extract_meshes(sub)
+        t2 = time.perf_counter()
+        m_plain = plain.extract_meshes(dict(enc, active_pages=pages["plain"]))
+        t3 = time.perf_counter()
+        w_host = engine.warp_batch(sub, m_masked)
+        t4 = time.perf_counter()
+        m_dn = devnorm.extract_meshes(sub)
+        t5 = time.perf_counter()
+        w_dn = devnorm.warp_batch(sub, m_dn)
+        t6 = time.perf_counter()
+        if i > 0:
+            for key, dt in (("encode", t1 - t0), ("mc_masks", t2 - t1),
+                            ("mc_plain", t3 - t2), ("warp", t4 - t3),
+                            ("mc_devnorm", t5 - t4),
+                            ("warp_devnorm", t6 - t5)):
+                stages[key].append(dt * 1e3)
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = LARGE_BATCHES
+    log(f"large volume launches over {n} batches: {launches}")
+    check(launches == {"fps": 2 * n, "sa_tc": 2 * n, "dense_decode_tc": n,
+                       "ggm": n},
+          f"unexpected launch counts at {S}^3: {launches}")
+
+    # ---- (b) the masks ----
+    wnf0 = enc["wnf_volume"][:1]
+    card = [t.cpu() for t in extract_active_bricks(
+        wnf0, 0.5, engine.brick_cap, with_masks=True)]
+    cpu = extract_active_bricks(wnf0.cpu(), 0.5, engine.brick_cap,
+                                with_masks=True)
+    check(all(torch.equal(a, b) for a, b in zip(card, cpu)),
+          "the card's masked bricks differ from the CPU's")
+    check(int(cpu[2][0]) == counts[0] > 0,
+          f"garment 0: {counts[0]} shipped bricks, the CPU {int(cpu[2][0])}")
+    for b, (mm, mp) in enumerate(zip(m_masked, m_plain)):
+        check(mm is not None and len(mm) == len(mp) == 4
+              and all(np.array_equal(a, c) for a, c in zip(mm, mp)),
+              f"garment {b}: masked host MC differs from unmasked")
+    log(f"large volume: masked bricks of garment 0 ({counts[0]} shipped, "
+        f"72-byte payloads) byte-equal to the CPU's; masked host MC "
+        f"identical to unmasked on all {B} garments")
+
+    # ---- (c) device normals ----
+    shares, worst, means, p95s = [], 0, [], []
+    cloth_np = cloth.cpu()
+    for b in range(B):
+        mh, md, wd = m_masked[b], m_dn[b], w_dn[b]
+        check(md[3] is None and np.array_equal(md[0], mh[0])
+              and np.array_equal(md[1], mh[1]),
+              f"garment {b}: device-normal meshes differ")
+        q = torch.from_numpy(md[0].astype(np.float16).astype(np.float32))
+        on_card = sample_gradient_normals_oct(
+            cloth[b:b + 1], q[None].to(dev), True)[0].cpu().numpy()
+        on_cpu = sample_gradient_normals_oct(
+            cloth_np[b:b + 1], q[None], True)[0].numpy()
+        share, diff = code_agreement(on_card, on_cpu)
+        shares.append(share)
+        worst = max(worst, diff)
+        check(np.array_equal(wd["normals"], oct_decode_np(on_card)),
+              f"garment {b}: the warp lane's normals are not its codes'")
+        ang = angles_deg(wd["normals"], mh[3])
+        means.append(float(ang.mean()))
+        p95s.append(float(np.percentile(ang, 95)))
+    log(f"large volume: device normals: the same verts as host normals on "
+        f"all {B} garments; codes equal to the CPU's at "
+        f"{min(shares) * 100:.4f}% of vertices or more (limit 99.9), "
+        f"at most {worst} count per byte elsewhere (limit 1); angle to the "
+        f"host normals mean {max(means):.3f} deg at most (limit "
+        f"{NORMAL_MEAN_DEG}), p95 {max(p95s):.3f} (limit {NORMAL_P95_DEG})")
+    check(min(shares) >= 0.999 and worst <= 1,
+          "device-normal codes disagree with the CPU's")
+    check(max(means) < NORMAL_MEAN_DEG and max(p95s) < NORMAL_P95_DEG,
+          "device normals disagree with the host normals")
+
+    # ---- (d) stage times ----
+    wnf = enc["wnf_volume"]
+
+    def bricks(masks=True):
+        base, vals, c = extract_active_bricks(wnf, 0.5, engine.brick_cap,
+                                              with_masks=masks)
+        return pack_brick_pages(base, vals, engine.brick_page, counts=c)
+
+    # the device normals' sampling alone, at the warp's padded queries
+    vmax = max(len(m[0]) for m in m_dn)
+    qb = np.zeros((B, vmax, 3), np.float16)
+    for b, m in enumerate(m_dn):
+        qb[b, :len(m[0])] = m[0]
+    qb = torch.from_numpy(qb).to(dev).float()
+    wnf_cloth = sub["wnf_volume"]
+    normals_ms = time_ms(
+        lambda: sample_gradient_normals_oct(wnf_cloth, qb, True), 5)
+    codes = sample_gradient_normals_oct(wnf_cloth, qb, True).float().cpu()
+    t0 = time.perf_counter()
+    for b, m in enumerate(m_dn):
+        oct_decode_np(codes[b, :len(m[0])].numpy())
+    decode_host_ms = (time.perf_counter() - t0) * 1e3
+
+    dec_ms = time_ms(lambda: engine._decode(enc["feature_volume"]), 3)
+    ggm_ms = time_ms(lambda: gaussian_gradient_magnitude(wnf, 0.5), 5)
+    brick_ms = time_ms(bricks, 5)
+    brick_plain_ms = time_ms(lambda: bricks(False), 5)
+    copy_ms = time_ms(lambda: engine.prefetch(enc), 5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        engine.prefetch(enc)
+        engine.host_outputs(enc)
+    copy_host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    copy_mb = sum(pg.numel() for pg in enc["active_pages"]) / 1e6
+    med = {k: statistics.median(v) for k, v in stages.items()}
+    per_batch = "; ".join(f"{k} " + ", ".join(f"{t:.1f}" for t in v)
+                          for k, v in stages.items())
+    seq = med["encode"] + med["mc_masks"] + med["warp"]
+    seq_dn = med["encode"] + med["mc_devnorm"] + med["warp_devnorm"]
+    log(f"large volume on {name}: B={B}, N={N}, {S}^3, decode 'high', "
+        f"{n - 1} timed batches, stages in sequence; median ms a batch: "
+        f"encode {med['encode']:.1f} (device: decode {dec_ms:.1f}, ggm "
+        f"{ggm_ms:.3f}, bricks and pages with masks {brick_ms:.2f}, "
+        f"without {brick_plain_ms:.2f}, the rest "
+        f"{med['encode'] - dec_ms - ggm_ms - brick_ms:.1f}); host MC "
+        f"with masks {med['mc_masks']:.1f}, without {med['mc_plain']:.1f}, "
+        f"with masks and device normals {med['mc_devnorm']:.1f}; warp "
+        f"{med['warp']:.1f}, with device normals "
+        f"{med['warp_devnorm']:.1f} (their sampling {normals_ms:.3f} on the "
+        f"device, the host decode of {sum(len(m[0]) for m in m_dn)} codes "
+        f"{decode_host_ms:.1f})")
+    log(f"large volume: {B * 1e3 / seq:.3f} garments/s with host normals, "
+        f"{B * 1e3 / seq_dn:.3f} with device normals (encode + host MC + "
+        f"warp in sequence); the prefetch copies {copy_mb:.2f} MB of pages "
+        f"a batch in {copy_ms:.3f} ms on the device, {copy_host_ms:.2f} ms "
+        f"on the host clock with its pinned buffers and wait "
+        f"({copy_host_ms / med['encode'] * 100:.1f}% of the encode); peak "
+        f"memory {peak_gib:.3f} GiB; brick-cap overflows {overflows} of "
+        f"{n} batches (shipped bricks of the network's WNF {real_counts}, "
+        f"cap {engine.brick_cap})")
+    log(f"large volume ms of each timed batch: {per_batch}")
+    for eng in (engine, plain, devnorm):
+        eng.close()
+    del enc, sub, wnf, cloth, wnf0
+
+    # ---- (e) the predict CLI at 256^3 with device normals ----
+    ckpt = tmp / "large.ckpt"
+    zarr = tmp / "variants.zarr"
+    cli_cfg = load_config("predict_default", [
+        f"main.checkpoint_path={ckpt}", f"datamodule.zarr_path={zarr}",
+        f"datamodule.batch_size={B}", f"datamodule.num_pc_sample={N}",
+        "datamodule.volume_size=16", "datamodule.dataset_split=[0,0,1]",
+        f"prediction.volume_size={S}", "prediction.device_normals=true",
+        f"prediction.device={dev}"])
+    dm = ConvImplicitWNFDataModule(**cli_cfg["datamodule"])
+    dm.prepare_data()
+    check(len(dm.test_idxs) == B, f"{len(dm.test_idxs)} garments")
+    first = next(iter(dm.test_dataloader()))
+    model = ConvImplicitWNFPipeline(cfg)
+    seeded_init_(model, 7)
+    live_head_(model, first["x"], first["pos"], dev)
+    save_pipeline_checkpoint(ckpt, cfg, model.state_dict())
+    del model
+    warps = []
+    collect = PredictEngine.warp_collect
+
+    def spy(self, handle):
+        out = collect(self, handle)
+        warps.extend(w for w in out if w is not None)
+        return out
+
+    _build.reset_launch_counts()
+    PredictEngine.warp_collect = spy
+    try:
+        run = predict.main(cli_cfg, run_dir=str(tmp / "run_large"))
+    finally:
+        PredictEngine.warp_collect = collect
+    cli_launches = dict(_build.LAUNCHES)
+    check(cli_launches == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 1,
+                           "ggm": 1},
+          f"unexpected launch counts in the {S}^3 CLI: {cli_launches}")
+    summary = json.loads((run / "summary.json").read_text())
+    rec = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
+    groups = list(zarrlite.open(str(run / "prediction.zarr"),
+                                "r")["samples"].groups())
+    check(len(groups) == B == len(warps), f"{len(groups)} groups written")
+    n_verts = []
+    for key, g in groups:
+        mc = g["marching_cubes_mesh"]
+        verts, normals = mc["verts"][:], mc["normals"][:]
+        check(len(verts) > 1 and normals.shape == verts.shape
+              and np.abs(np.linalg.norm(normals, axis=-1) - 1).max() < 1e-5,
+              f"{key}: normals not unit length")
+        check(any(np.array_equal(normals, w["normals"]) for w in warps),
+              f"{key}: the written normals are not a warp's")
+        n_verts.append(len(verts))
+    log(f"large volume: predict CLI at {S}^3 with device normals on "
+        f"{name}: {summary['garments_per_sec']:.3f} garments/s ({B} "
+        f"garments in {summary['elapsed_sec']:.3f} s, one batch); writer "
+        f"{rec['writer_ms']:.1f} ms, encode {rec['encode_ms']:.1f}, host MC "
+        f"{rec['host_mc_ms']:.1f}; verts per garment "
+        f"{min(n_verts)}-{max(n_verts)}; normals unit length and the "
+        f"warp's")
+
+    # ---- (f) ResidualUNet3D, card against CPU ----
+    torch.manual_seed(11)
+    unet = ResidualUNet3D(cfg.unet_in_channels, cfg.unet_out_channels,
+                          f_maps=32, num_groups=8, num_levels=5)
+    seeded_init_(unet, 11)
+    xin = torch.rand(2, 32, 32, 32, cfg.unet_in_channels, generator=gen)
+    with torch.no_grad(), full_f32():
+        want = unet.eval()(xin)
+        got = unet.to(dev)(xin.to(dev)).cpu()
+    uerr = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"large volume: ResidualUNet3D (f_maps 32, 5 levels, "
+        f"{cfg.unet_in_channels}->{cfg.unet_out_channels}) on [2, 32^3]: "
+        f"card against CPU max abs err {uerr:.3e} on outputs up to "
+        f"{scale:.3f} (limit 1e-4 of max(1, that))")
+    check(uerr <= 1e-4 * max(1.0, scale) and bool(torch.isfinite(got).all()),
+          "ResidualUNet3D on the card disagrees with the CPU")
+    log(f"large volume phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"large": launches, "large_cli": cli_launches}
+
+
 def small_cfg():
     """A tiny pipeline configuration for checks of the card against the
     CPU."""
@@ -1626,16 +2018,18 @@ def main() -> int:
         launches["cli"], cli_run = phase_predict_cli(dev, tmp)
         phase_eval(cli_run, tmp)
         launches.update(phase_variants(dev, tmp))
+        launches.update(phase_large_volume(dev, tmp))
         launches.update(phase_train(dev, tmp)["launches"])
     phase_serve(dev)
     phase_small_reference(dev)
 
     # launches over the driven paths: the main path at 'high', the predict
-    # CLI, the two variant batches and the predict run on the trained
-    # checkpoint (all at 'high') for the 'high' decode row, the main path's
-    # 'highest' batch for the 'highest' row, all of them and the two train
-    # CLIs for the rest
-    at_high = ("high", "cli", "holes", "task_space", "train_predict")
+    # CLI, the two variant batches, the 256^3 engine's batches and CLI
+    # batch, and the predict run on the trained checkpoint (all at 'high')
+    # for the 'high' decode row, the main path's 'highest' batch for the
+    # 'highest' row, all of them and the two train CLIs for the rest
+    at_high = ("high", "cli", "holes", "task_space", "large", "large_cli",
+               "train_predict")
     for k, row in rows.items():
         if k == "dense_decode_tc":
             row["launches"] = sum(launches[p][k] for p in at_high)

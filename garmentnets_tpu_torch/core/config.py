@@ -1,6 +1,6 @@
 """YAML configs with dotted CLI overrides (the port's copy of what its CLIs
 need from garmentnets_tpu/core/config.py: load_config, load_yaml,
-parse_cli, make_run_dir and dump_config).
+parse_cli, make_run_dir and dump_config), and optional_flag.
 
 Configs are read from the repository's configs/ directory. `yaml` is
 imported when a config is loaded, so the rest of the port does not need
@@ -33,6 +33,18 @@ def apply_override(cfg: dict, dotted_key: str, value) -> None:
             node[p] = {}
         node = node[p]
     node[parts[-1]] = value
+
+
+def optional_flag(cfg: dict, dotted_key: str) -> bool:
+    """The option at `dotted_key` ("section.key") of a loaded config: null
+    or absent (off), true or false; anything else is refused, naming the
+    key."""
+    section, key = dotted_key.split(".")
+    value = (cfg.get(section) or {}).get(key)
+    if value is not None and not isinstance(value, bool):
+        raise ValueError(f"{dotted_key}={value!r}: expected true, false or "
+                         f"null")
+    return bool(value)
 
 
 def load_config(name: str, overrides: Optional[Sequence[str]] = None,

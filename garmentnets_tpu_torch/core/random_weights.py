@@ -10,7 +10,8 @@ import torch
 def seeded_init_(model: torch.nn.Module, seed: int) -> None:
     """Overwrite every parameter and BatchNorm running statistic of `model`
     from a torch.Generator seeded with `seed`: uniform(+-1/sqrt(fan_in))
-    for Linear/Conv3d weights and biases, norm affines near (1, 0), and
+    for Linear/Conv3d/ConvTranspose3d weights and biases (fan_in read as
+    weight[0].numel()), norm affines near (1, 0), and
     randomized running statistics (mean 0.2*N(0,1), var 0.5+U(0,1)) so
     eval-mode BatchNorm is not the identity."""
     gen = torch.Generator().manual_seed(seed)
@@ -19,7 +20,8 @@ def seeded_init_(model: torch.nn.Module, seed: int) -> None:
         return (torch.rand(shape, generator=gen) * 2 - 1) * bound
 
     for m in model.modules():
-        if isinstance(m, (torch.nn.Linear, torch.nn.Conv3d)):
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv3d,
+                          torch.nn.ConvTranspose3d)):
             bound = 1.0 / m.weight[0].numel() ** 0.5
             m.weight.copy_(uniform(m.weight.shape, bound))
             if m.bias is not None:

@@ -8,6 +8,10 @@ layout through `state_dict_from_jax`:
 
   Dense kernel [in, out]            -> Linear weight [out, in]
   Conv kernel [kd, kh, kw, i, o]    -> Conv3d weight [o, i, kd, kh, kw]
+  ConvTranspose kernel               -> ConvTranspose3d weight
+    [kd, kh, kw, o, i] (flax's          [i, o, kd, kh, kw], no spatial
+    transpose_kernel layout)             flip (flax's transpose_kernel
+                                         takes torch's adjoint convention)
   scale/bias (+ batch_stats)        -> BatchNorm/GroupNorm weight/bias
                                        (+ running_mean/var,
                                        num_batches_tracked = 0)
@@ -80,9 +84,45 @@ def _single_conv(sd, prefix, p, s):
             _put_bn(sd, f"{prefix}.batchnorm", sub, (s or {})[name])
 
 
+def _put_conv_transpose3d(sd, prefix, p):
+    k = np.asarray(p["kernel"])                      # [kd,kh,kw,o,i]
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(
+        np.transpose(k, (4, 3, 0, 1, 2)))
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _residual_unet3d(sd, params, stats, prefix):
+    """ResidualUNet3D: ExtResNetBlock conv1..conv3 and the decoders'
+    transposed convolutions."""
+    for kind in ("encoder", "decoder"):
+        i = 0
+        while f"{kind}_{i}" in params:
+            bp, bs = params[f"{kind}_{i}"], stats.get(f"{kind}_{i}", {})
+            base = f"{prefix}.{kind}s.{i}"
+            for j in (1, 2, 3):
+                _single_conv(sd, f"{base}.basic_module.conv{j}",
+                             bp[f"conv{j}"], bs.get(f"conv{j}"))
+            if kind == "decoder":
+                _put_conv_transpose3d(sd, f"{base}.upsampling.upsample",
+                                      params[f"upsample_{i}"])
+            i += 1
+    _put_conv3d(sd, f"{prefix}.final_conv", params["final_conv"])
+
+
+def unet3d_state_from_jax(variables: dict, prefix: str) -> dict:
+    """{"params"[, "batch_stats"]} of a JAX UNet3D or ResidualUNet3D ->
+    reference-layout {key: numpy array} under `prefix` (the port's module
+    path of its `abstract_3d_unet`)."""
+    sd: dict = {}
+    _unet3d(sd, variables["params"], variables.get("batch_stats", {}),
+            prefix)
+    return sd
+
+
 def _unet3d(sd, params, stats, prefix):
     if "conv3" in params.get("encoder_0", {}):
-        raise NotImplementedError("ResidualUNet3D is not ported yet")
+        _residual_unet3d(sd, params, stats, prefix)
+        return
     for kind in ("encoder", "decoder"):
         i = 0
         while f"{kind}_{i}" in params:

@@ -15,6 +15,9 @@ where neither libblosc nor `zstandard` is installed), with NaN-sentinel
 placeholders where marching cubes finds no surface. The port's eval CLI
 (harness/eval.py) and the JAX package's read it. A task-space checkpoint
 (`volume_task_space`) runs with the dataset's sim AABB.
+`prediction.device_normals=true` takes the mesh normals from the warp
+(ops/normals) instead of host marching cubes (null or false: the host's);
+the engine ships straddle masks with the bricks from volume_size 192 on.
 
 `prediction.device` picks the device: the card unless it says cpu (no
 fallback). Checkpoints are Lightning `.ckpt` files (core/checkpoint.py;
@@ -78,11 +81,15 @@ def process_item(enc_np: dict, item: int, batch_np: dict, input_group,
     mc_data = nan_mc_placeholders()
     if mesh is not None and warp is not None:
         mc_verts, mc_faces, mc_values, mc_normals = mesh
+        if mc_normals is None:
+            # device normals: they ride the warp result (ops/normals)
+            mc_normals = warp["normals"]
         mc_data = {
             "verts": mc_verts.astype(np.float32),
             "faces": mc_faces.astype(np.int32),
-            # unit volume-gradient normals and per-vertex volume values
-            # from the host MC kernel (skimage semantics; reference
+            # unit volume-gradient normals (from the host MC kernel, or
+            # from the warp with device normals) and per-vertex volume
+            # values from the host MC kernel (skimage semantics; reference
             # predict.py:172-197)
             "normals": mc_normals.astype(np.float32),
             "volume_value": mc_values.astype(np.float32),
@@ -150,14 +157,6 @@ def process_item(enc_np: dict, item: int, batch_np: dict, input_group,
     return mc_data
 
 
-def check_supported(pred_cfg: dict) -> None:
-    """Refuse, naming the key, the prediction options the port lacks."""
-    if pred_cfg.get("device_normals"):
-        raise NotImplementedError(
-            "prediction.device_normals=true: device normals are not ported "
-            "yet (ROADMAP Queue 1, engine options at large volumes)")
-
-
 class _StageClock:
     """A batch's device encode time: CUDA events around the encode on a
     card (read once the batch is done), the host clock on the CPU."""
@@ -184,7 +183,8 @@ class _StageClock:
 def main(cfg, run_dir=None) -> pathlib.Path:
     pred_cfg = dict(cfg["prediction"])
     dm_cfg = dict(cfg["datamodule"])
-    check_supported(pred_cfg)
+    device_normals = config_mod.optional_flag(cfg,
+                                              "prediction.device_normals")
     device = resolve_device(pred_cfg.get("device", "cuda"))
     volume_size = int(pred_cfg["volume_size"])
 
@@ -215,7 +215,8 @@ def main(cfg, run_dir=None) -> pathlib.Path:
         points_key="datamodule.num_pc_sample",
         use_hole_prediction=use_holes,
         task_aabb=(val_dataset.cloth_sim_aabb
-                   if pipe_cfg.volume_task_space else None))
+                   if pipe_cfg.volume_task_space else None),
+        device_normals=device_normals)
 
     run_dir = config_mod.make_run_dir(run_dir=run_dir)
     logger = make_logger(run_dir, cfg.get("logger"))

@@ -9,7 +9,18 @@ Per batch:
       per thread.
   warp: surface decoder at the mesh vertices plus the ggm gather at each
       vertex's nearest voxel (plus the mc-surface head's logits with
-      `use_hole_prediction`).
+      `use_hole_prediction`, and the vertex normals' octahedral codes with
+      `device_normals`).
+
+Two options for large volumes, as in the JAX engine:
+- `cube_masks` (on by default at volume_size >= 192): the bricks carry
+  each brick's 64-bit cube-straddle mask (72-byte payloads), so host
+  marching cubes skips its rejection scan; the meshes are the same.
+- `device_normals` (off by default): the vertex normals come from the
+  warp (ops/normals: the gradient of the full-precision WNF at each
+  vertex, 16-bit octahedral codes) and host marching cubes skips its
+  normals pass. The codes ride the float32 warp buffer as their exact
+  integer values, and the dense WNF stays on the device until the warp.
 
 The model variants run as the JAX engine runs them: a task-space
 checkpoint (`volume_task_space`) takes the dataset's sim AABB
@@ -57,6 +68,11 @@ from garmentnets_tpu_torch.ops.isosurface import (
     split_brick_payload, unpack_brick_pages)
 from garmentnets_tpu_torch.ops.marching_cubes import (
     marching_cubes, marching_cubes_bricks)
+from garmentnets_tpu_torch.ops.normals import (
+    oct_decode_np, sample_gradient_normals_oct)
+
+# the volume width from which the engine ships straddle masks by default
+MASKS_FROM_VOLUME = 192
 
 
 _MC_POOLS: dict = {}
@@ -157,7 +173,9 @@ class PredictEngine:
                  mc_threads: Optional[int] = None,
                  device="cuda", num_points: Optional[int] = None,
                  points_key: str = "datamodule.num_pc_sample",
-                 use_hole_prediction: bool = False, task_aabb=None):
+                 use_hole_prediction: bool = False, task_aabb=None,
+                 cube_masks: Optional[bool] = None,
+                 device_normals: bool = False):
         """state_dict: the pipeline's weights in the reference layout (see
         core/weights.py). decode_precision: the dense decode's tier, 'high'
         (bf16x3, the JAX engine's default), 'default' (bf16) or 'highest'
@@ -165,7 +183,10 @@ class PredictEngine:
         checked on a card device against the FPS kernel under the config
         key `points_key`. use_hole_prediction: add the mc-surface logits to
         the warp (on only when cfg has the head). task_aabb: the dataset's
-        sim AABB [2, 3], required by a task-space cfg."""
+        sim AABB [2, 3], required by a task-space cfg. cube_masks: ship
+        the per-brick straddle masks (None: from volume_size 192 on, the
+        JAX engine's rule). device_normals: the vertex normals from the
+        warp instead of host marching cubes."""
         if cfg.volume_task_space and task_aabb is None:
             raise ValueError(
                 "cfg.volume_task_space=True requires task_aabb "
@@ -195,6 +216,9 @@ class PredictEngine:
         self.brick_page = min(1024, brick_cap)
         self.brick_cap = -(-brick_cap // self.brick_page) * self.brick_page
         self.return_volume = return_volume
+        self.cube_masks = (volume_size >= MASKS_FROM_VOLUME
+                           if cube_masks is None else bool(cube_masks))
+        self.device_normals = bool(device_normals)
         self.load_state_dict(state_dict)
         if mc_threads is None:
             mc_threads = min(4, os.cpu_count() or 1)
@@ -248,7 +272,8 @@ class PredictEngine:
             ggm = gaussian_gradient_magnitude(wnf, self.gradient_sigma)
         with record_function("encode/bricks_and_pages"):
             base, vals, counts = extract_active_bricks(
-                wnf, self.iso_level, self.brick_cap)
+                wnf, self.iso_level, self.brick_cap,
+                with_masks=self.cube_masks)
             # page 0 carries the counts in a header row
             pages = pack_brick_pages(base, vals, self.brick_page,
                                      counts=counts)
@@ -264,16 +289,17 @@ class PredictEngine:
             "global_logits": p2["global_logits"],
             "global_feature": p2["global_feature"],
         }
-        if self.return_volume:
+        if self.return_volume or self.device_normals:
             out["wnf_volume"] = wnf
         return out
 
     def prefetch(self, enc: dict, extra_keys=()) -> None:
         """Start copying every brick page of `enc`, and the tensors named
         in `extra_keys`, into pinned host buffers, and record an event
-        behind the copies. All pages are copied (~4.5 MB at B=8, 128^3), so
-        no count has to come back first. The buffers hold stale bytes until
-        the event has completed: read them only through `host_outputs`."""
+        behind the copies. All pages are copied (~4.5 MB at B=8, 128^3,
+        ~20 MB at 256^3 with masks), so no count has to come back first.
+        The buffers hold stale bytes until the event has completed: read
+        them only through `host_outputs`."""
         pages = enc["active_pages"]
         host = {"active_pages": [_to_host(p) for p in pages]}
         host.update({k: _to_host(enc[k]) for k in extra_keys})
@@ -300,8 +326,10 @@ class PredictEngine:
 
     def extract_meshes(self, enc: dict) -> list:
         """Read the batch's prefetched brick pages and run the host C++
-        marching cubes per garment. Returns per garment (verts, faces,
-        values, normals), or None where no surface was found."""
+        marching cubes per garment (with the pages' straddle masks where
+        they carry them). Returns per garment (verts, faces, values,
+        normals), or None where no surface was found; normals is None with
+        device_normals (the warp returns them)."""
         pages = self.host_outputs(enc)["active_pages"]
         p0 = pages[0].numpy()
         counts = read_page_counts(p0)
@@ -327,20 +355,23 @@ class PredictEngine:
         n_pages = max(1, -(-kmax // self.brick_page))
         srcs = [p0] + [p.numpy() for p in pages[1:n_pages]]
         brick_idx, brick_vals = unpack_brick_pages(srcs, header=True)
-        brick_vals, _ = split_brick_payload(brick_vals)
+        brick_vals, masks = split_brick_payload(brick_vals)
+        devnorm = self.device_normals
 
         def run_one(b):
             n = int(counts[b])
             if n == 0:
                 return None
             try:
-                return marching_cubes_bricks(
+                res = marching_cubes_bricks(
                     brick_idx[b, :n], brick_vals[b, :n], (S, S, S),
                     self.iso_level, spacing,
                     gradient_direction=self.gradient_direction,
-                    return_values=True, return_normals=True)
+                    return_values=True, return_normals=not devnorm,
+                    cube_masks=None if masks is None else masks[b, :n])
             except ValueError:
                 return None
+            return (*res, None) if devnorm else res
 
         if self._pool is not None and B > 1:
             return list(self._pool.map(run_one, range(B)))
@@ -357,8 +388,9 @@ class PredictEngine:
     @full_f32()
     def warp_dispatch(self, enc: dict, meshes: list):
         """Queue the surface decoder + ggm gather (+ the mc-surface logits
-        with hole prediction) over all garments' mesh vertices and the copy
-        of the result into a pinned host buffer; returns a handle for
+        with hole prediction, + the normals' octahedral codes with device
+        normals) over all garments' mesh vertices and the copy of the
+        result into a pinned host buffer; returns a handle for
         warp_collect."""
         sizes = [0 if m is None else len(m[0]) for m in meshes]
         vmax = max(sizes) if sizes else 0
@@ -379,6 +411,11 @@ class PredictEngine:
         if self.use_hole_prediction:
             cols.append(self.model.mc_surface_decoder_forward(
                 enc["feature_volume"], q)[..., :1])
+        if self.device_normals:
+            # the u16 codes as exact float32 integers (exact below 2^24)
+            codes = sample_gradient_normals_oct(
+                enc["wnf_volume"], q, self.gradient_direction == "ascent")
+            cols.append(codes.to(torch.float32)[..., None])
         out = _to_host(torch.cat(cols, dim=-1))
         return (out, _record_event(self.device), sizes)
 
@@ -397,10 +434,12 @@ class PredictEngine:
         res = {"warp_field": rows[:, :3], "verts_ggm": rows[:, 3]}
         if self.use_hole_prediction:
             res["mc_surface_logits"] = rows[:, 4]
+        if self.device_normals:
+            res["normals"] = oct_decode_np(rows[:, -1])
         return res
 
     def warp_batch(self, enc: dict, meshes: list) -> list:
         """meshes: list of (verts, faces, ...) or None -> per garment
-        {"warp_field" [V, 3], "verts_ggm" [V][, "mc_surface_logits" [V]]}
-        or None."""
+        {"warp_field" [V, 3], "verts_ggm" [V][, "mc_surface_logits" [V]]
+        [, "normals" [V, 3]]} or None."""
         return self.warp_collect(self.warp_dispatch(enc, meshes))

@@ -306,6 +306,8 @@ class PredictService:
                 job.result = {"ok": np.int32(0)}     # no surface
             else:
                 verts, faces, values, normals = m
+                if normals is None:     # device normals ride the warp
+                    normals = w["normals"]
                 job.result = {
                     "ok": np.int32(1),
                     "verts": verts.astype(np.float32),
@@ -403,7 +405,10 @@ def predict_remote(url: str, x: np.ndarray, pos: np.ndarray) -> list:
 def main(cfg: dict) -> None:
     """Serve until interrupted. `server.device` picks the device (the card
     unless it says cpu); `prediction.decode_precision` picks the dense
-    decode's tier ('high' when unset, as in the JAX server)."""
+    decode's tier ('high' when unset, as in the JAX server);
+    `prediction.device_normals=true` takes the mesh normals from the warp
+    (off when unset, as the JAX server without its environment switch)."""
+    from garmentnets_tpu_torch.core.config import optional_flag
     server_cfg = cfg.get("server", {})
     pred_cfg = cfg.get("prediction", {})
     service = PredictService(
@@ -419,6 +424,7 @@ def main(cfg: dict) -> None:
             "gradient_direction": pred_cfg.get("gradient_direction",
                                                "ascent"),
             "decode_precision": pred_cfg.get("decode_precision", "high"),
+            "device_normals": optional_flag(cfg, "prediction.device_normals"),
         })
     host = server_cfg.get("host", "127.0.0.1")
     port = int(server_cfg.get("port", 8777))

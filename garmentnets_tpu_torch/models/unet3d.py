@@ -1,5 +1,5 @@
-"""3D U-Net (torch port of garmentnets_tpu/models/unet3d.py: UNet3D with
-SingleConv/DoubleConv).
+"""3D U-Nets (torch port of garmentnets_tpu/models/unet3d.py): UNet3D with
+SingleConv/DoubleConv, and ResidualUNet3D with ExtResNetBlock.
 
 Public layout is channels-last [B, D, H, W, C] as in the JAX package;
 inside, the volume runs channels-first through Conv3d. Module names follow
@@ -11,7 +11,10 @@ and would break the f32 parity bar. 'gcr' (the shipped order) has no
 running statistics; an order with 'b' normalizes with BatchNorm3d's batch
 statistics in training mode and moves its running statistics (momentum
 0.1, unbiased variance), as the JAX MaskedBatchNorm does without a mask.
-ResidualUNet3D waits for a later slice.
+ResidualUNet3D (reference unet3d.py:494-509) is keyed like UNet3D, with
+`encoders.{i}.basic_module.conv{1,2,3}` and
+`decoders.{i}.upsampling.upsample` (a ConvTranspose3d); no
+PipelineConfig selects it.
 """
 from __future__ import annotations
 
@@ -82,6 +85,46 @@ class DoubleConv(nn.Module):
         return self.SingleConv2(self.SingleConv1(x))
 
 
+class ExtResNetBlock(nn.Module):
+    """Residual block (reference unet3d.py:147-192): conv1, then conv2 and
+    conv3 (conv3's order without its nonlinearity), summed with conv1's
+    output, then the order's nonlinearity (ELU, LeakyReLU or ReLU)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 order: str = "cge", num_groups: int = 8):
+        super().__init__()
+        plain = "".join(c for c in order if c not in "rel")
+        self.conv1 = SingleConv(in_channels, out_channels, 3, order,
+                                num_groups)
+        self.conv2 = SingleConv(out_channels, out_channels, 3, order,
+                                num_groups)
+        self.conv3 = SingleConv(out_channels, out_channels, 3, plain,
+                                num_groups)
+        self.order = order
+
+    def forward(self, x):
+        out = self.conv1(x)
+        out = self.conv3(self.conv2(out)) + out
+        if "l" in self.order:
+            return F.leaky_relu(out, 0.1)
+        if "e" in self.order:
+            return F.elu(out)
+        return F.relu(out)
+
+
+class _Upsampling(nn.Module):
+    """ConvTranspose3d(k=3, s=2, p=1) to the skip's size (output padding
+    1 for the exact doubling of every level)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.upsample = nn.ConvTranspose3d(in_channels, out_channels, 3,
+                                           stride=2, padding=1)
+
+    def forward(self, x, size):
+        return self.upsample(x, output_size=size)
+
+
 class _Stage(nn.Module):
     def __init__(self, basic_module: nn.Module):
         super().__init__()
@@ -119,6 +162,65 @@ class _Abstract3DUNet(nn.Module):
                 x = x.repeat_interleave(skip.shape[ax] // x.shape[ax], dim=ax)
             x = dec.basic_module(torch.cat([skip, x], dim=1))
         return self.final_conv(x)
+
+
+class _ResidualDecoder(nn.Module):
+    def __init__(self, in_channels, out_channels, order, num_groups):
+        super().__init__()
+        self.upsampling = _Upsampling(in_channels, out_channels)
+        self.basic_module = ExtResNetBlock(out_channels, out_channels, order,
+                                           num_groups)
+
+
+class _ResidualAbstract3DUNet(nn.Module):
+    def __init__(self, in_channels, out_channels, f_maps, order, num_groups,
+                 num_levels):
+        super().__init__()
+        fm = (number_of_features_per_level(f_maps, num_levels)
+              if isinstance(f_maps, int) else list(f_maps))
+        encs, ch = [], in_channels
+        for o in fm:
+            encs.append(_Stage(ExtResNetBlock(ch, o, order, num_groups)))
+            ch = o
+        self.encoders = nn.ModuleList(encs)
+        rev = list(reversed(fm))
+        self.decoders = nn.ModuleList([
+            _ResidualDecoder(rev[i], rev[i + 1], order, num_groups)
+            for i in range(len(rev) - 1)])
+        self.final_conv = nn.Conv3d(fm[0], out_channels, 1)
+
+    def forward(self, x):
+        feats = []
+        for i, enc in enumerate(self.encoders):
+            if i > 0:
+                x = F.max_pool3d(x, 2)
+            x = enc.basic_module(x)
+            feats.insert(0, x)
+        for dec, skip in zip(self.decoders, feats[1:]):
+            x = skip + dec.upsampling(x, skip.shape[2:])
+            x = dec.basic_module(x)
+        return self.final_conv(x)
+
+
+class ResidualUNet3D(nn.Module):
+    """The residual variant (reference unet3d.py:494-509): ExtResNetBlock
+    basic modules, max-pool encoders, transposed-convolution upsampling
+    joined by summation, final 1x1x1 conv; 5 levels by default."""
+
+    def __init__(self, in_channels: int, out_channels: int, f_maps=32,
+                 layer_order: str = "cge", num_groups: int = 8,
+                 num_levels: int = 5):
+        super().__init__()
+        self.abstract_3d_unet = _ResidualAbstract3DUNet(
+            in_channels, out_channels, f_maps, layer_order, num_groups,
+            num_levels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, D, H, W, C] -> [B, D, H, W, C_out]."""
+        h = x.permute(0, 4, 1, 2, 3).contiguous()
+        with full_f32():
+            h = self.abstract_3d_unet(h)
+        return h.permute(0, 2, 3, 4, 1).contiguous()
 
 
 class UNet3D(nn.Module):

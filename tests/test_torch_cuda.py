@@ -6,6 +6,7 @@ conftest, which imports JAX):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -214,6 +215,66 @@ def test_tc_decode_kernel_refuses_vector_head(dev):
         with pytest.raises(ValueError, match="scalar head"):
             dense_decode(torch.zeros(1, 4, 4, 4, 4, device=dev), layers, 8,
                          precision)
+
+
+def test_decode_kernel_at_256_matches_plain(dev):
+    """The 'high' tier at the 256^3 lattice (a 17-column tile window over
+    the 32^3 coarse grid) within chip_smoke's 2e-5 bar of the plain
+    tier."""
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
+    fv, layers = chip_smoke.decode_inputs(
+        torch.Generator().manual_seed(256), (1, 32, 32, 32),
+        (128, 256, 256, 1), dev)
+    want = dense_decode_plain(fv, layers, 256, "high")
+    assert float(want.std()) > 0.1
+    out = dense_decode_tc_cuda(coarse_first_layer(fv, layers).contiguous(),
+                               pack_decoder(layers, "high"), 256)
+    err = float((out - want).abs().max())
+    assert err <= chip_smoke.TC_LIMITS["high"][0], err
+
+
+@pytest.mark.parametrize("S,B,cap", [(64, 2, 4096), (256, 1, 32768)])
+def test_masked_bricks_card_equal_cpu(dev, S, B, cap):
+    """Straddle-masked bricks and their pages: the card's bytes are the
+    CPU's."""
+    from garmentnets_tpu_torch.ops.isosurface import (
+        extract_active_bricks, pack_brick_pages)
+    w = chip_smoke.cloth_like_wnf(S)
+    wnf = torch.from_numpy(np.ascontiguousarray(
+        np.stack([w, w[:, ::-1]][:B]) + 0.01 * np.random.RandomState(S).rand(
+            B, S, S, S).astype(np.float32)))
+    card = extract_active_bricks(wnf.to(dev), 0.5, cap, with_masks=True)
+    cpu = extract_active_bricks(wnf, 0.5, cap, with_masks=True)
+    assert card[1].shape == (B, cap, 72) and int(cpu[2].min()) > 0
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(pack_brick_pages(*card[:2], 1024, counts=card[2]),
+                    pack_brick_pages(*cpu[:2], 1024, counts=cpu[2])):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_device_normal_codes_card_match_cpu(dev):
+    """sample_gradient_normals_oct on the card against the CPU on the same
+    field and points (lattice planes, borders and interior): codes equal
+    at >= 99.9% of the points, within one count per byte elsewhere."""
+    from garmentnets_tpu_torch.ops.normals import sample_gradient_normals_oct
+    S = 64
+    rs = np.random.RandomState(5)
+    wnf = torch.from_numpy(np.stack([
+        chip_smoke.cloth_like_wnf(S),
+        rs.rand(S, S, S).astype(np.float32)]))
+    q = rs.rand(2, 20000, 3).astype(np.float16).astype(np.float32)
+    q[:, :1000] = np.round(q[:, :1000] * (S - 1)) / (S - 1)
+    q[:, 1000:1100, 0] = 0.0
+    q[:, 1100:1200, 1] = 1.0
+    q = torch.from_numpy(q)
+    for ascent in (True, False):
+        got = sample_gradient_normals_oct(wnf.to(dev), q.to(dev),
+                                          ascent).cpu().numpy()
+        want = sample_gradient_normals_oct(wnf, q, ascent).numpy()
+        share, worst = chip_smoke.code_agreement(got, want)
+        assert share >= 0.999 and worst <= 1, (share, worst)
 
 
 def test_engine_card_matches_cpu(dev):

@@ -31,8 +31,8 @@ assert set(EXPECTED) <= set(mods), sorted(set(EXPECTED) - set(mods))
 print(len(mods))
 """
 
-# modules of the predict, serve, predict-CLI, eval and training slices that
-# must be among them
+# modules of the predict, serve, predict-CLI, eval, training and
+# large-volume slices that must be among them
 EXPECTED = [
     "garmentnets_tpu_torch." + m for m in (
         "harness.predict_engine", "harness.serve", "harness.predict",
@@ -46,7 +46,8 @@ EXPECTED = [
         "data.blosc_codec", "data.zarrlite", "data.dataset",
         "data.synthetic", "utils.cache", "models.losses",
         "harness.training", "harness.train_pointnet2",
-        "harness.train_pipeline", "harness.vis_hooks")]
+        "harness.train_pipeline", "harness.vis_hooks", "ops.normals",
+        "ops.isosurface", "models.unet3d")]
 
 
 def _env():

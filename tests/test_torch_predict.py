@@ -369,9 +369,12 @@ def test_logs_stage_times_and_summary(setup, outputs):
 
 
 @pytest.mark.parametrize("pred,match", [
-    ({"device_normals": True}, "prediction.device_normals")])
+    ({"device_normals": "sometimes"}, "prediction.device_normals")])
 def test_refuses_unported_options(setup, tmp_path, pred, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """An option value the port cannot honour is refused, naming the key,
+    before anything is written (prediction.device_normals=true itself is
+    ported: tests/test_torch_normals.py)."""
+    with pytest.raises(ValueError, match=match):
         predict.main(_cfg(setup, "torch", pred=pred),
                      run_dir=str(tmp_path / "r"))
     assert not (tmp_path / "r").exists()
