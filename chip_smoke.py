@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card; exits non-zero without one. Phases, each fatal:
+Needs one CUDA card, and uses every card present in phase 10; exits
+non-zero without one. Phases, each fatal:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel (csrc/*.cu, nvcc for sm_90a, one process per
      source, all at once) and the host marching-cubes library, into
@@ -52,7 +53,21 @@ Needs one CUDA card; exits non-zero without one. Phases, each fatal:
      device batch, the overlap of host MC with the next encode, and one
      request against a direct engine run; then the engine at a tiny size
      on the card against the CPU path at 'highest' and 'high';
-  10. a `kernels` JSON line, the nvidia-smi line, and the final JSON
+  10. several cards (`phase_multi_gpu`; one card stands in where the
+     machine has one): `cards: n`; the decode at 'high' in 2, 4 and 8
+     strips of D planes bit-equal to the whole launch at 128^3 and 256^3;
+     PredictEngine(mesh=...) at the main path's width on make_mesh_2d(n,
+     1) and (n/2, 2), or on cuda:0 listed four times as (2, 2), against
+     the one-device engine (WNF within 2e-5, bricks, vertices, warp), with
+     its launches, stage ms, garments/s and no host sync during its
+     encodes; both training stages at the shipped widths on two ranks
+     (nccl on two cards, else gloo on cuda:0, said so): replicas bit-equal
+     after every step, the first step within the CPU tests' bars of one
+     process's step (no bar above DDP_BAR_CAP of a tensor's largest
+     entry), ms a step, samples/s and peak memory a rank; on two or more
+     cards, the stage-1 train CLI as shipped on trainer.device=cuda, one
+     nccl rank a card;
+  11. a `kernels` JSON line, the nvidia-smi line, and the final JSON
      line.
 """
 from __future__ import annotations
@@ -1841,7 +1856,10 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
     gpu = torch.cuda.get_device_name(0)
     common = [f"datamodule.zarr_path={tmp / 'data.zarr'}",
               f"datamodule.dataset_split={TRAIN_SPLIT}",
-              "datamodule.volume_size=32", f"trainer.device={dev}"]
+              "datamodule.volume_size=32", f"trainer.device={dev}",
+              # one process on the named card: its launches are counted
+              # here
+              "trainer.num_devices=1"]
     cfg1 = load_config("train_pointnet2_default", common + [
         f"trainer.max_epochs={S1_EPOCHS}",
         f"trainer.limit_train_batches={S1_BATCHES}"])
@@ -1986,6 +2004,458 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
             "ms": {1: t1["ms"], 2: t2["ms"]}}
 
 
+# ---------------------------------------------------------------------------
+# several cards
+# ---------------------------------------------------------------------------
+STRIPS = (2, 4, 8)
+MULTI_BATCHES = 2          # sharded-engine batches a mesh; the first warms up
+DDP_RANKS = 2
+DDP_STEPS = {1: 2, 2: 3}   # steps a stage; the first one is not timed
+DDP_B = {1: B, 2: 24}      # global batch a stage (the shipped configs')
+DDP_TIMEOUT_S = 120.0
+# the largest bar a gradient tensor of the data-parallel check may take,
+# relative to its largest entry: a zero or wrong gradient fails
+DDP_BAR_CAP = 0.1
+WNF_LIMIT = 2e-5           # the 'high' decode's limit against f32 (TC_LIMITS)
+WARP_LIMIT = 1e-3
+
+
+def decode_strips(dev) -> None:
+    """The tensor-core decode at 'high' in 2, 4 and 8 strips of D planes on
+    one card against the whole launch, at 128^3 and 256^3: every strip
+    bit-equal to its slice; the strips' summed time against the whole's."""
+    import torch
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
+    from garmentnets_tpu_torch.ops.dense_decode import coarse_first_layer
+    for S in (VOL, VOL_LARGE):
+        gen = torch.Generator().manual_seed(11)
+        fv, layers = decode_inputs(gen, (B, 32, 32, 32), (128, 256, 256, 1),
+                                   dev)
+        z = coarse_first_layer(fv, layers).contiguous()
+        packed = pack_decoder(layers, "high")
+        whole = dense_decode_tc_cuda(z, packed, S)
+        whole_ms = time_ms(lambda: dense_decode_tc_cuda(z, packed, S), 3)
+        for n in STRIPS:
+            per = S // n
+
+            def run_strips():
+                return [dense_decode_tc_cuda(z, packed, S, (j * per, per))
+                        for j in range(n)]
+            strips = run_strips()
+            diff = max(float((s - whole[:, j * per:(j + 1) * per]).abs()
+                             .max()) for j, s in enumerate(strips))
+            ms = time_ms(run_strips, 3)
+            log(f"decode strips at {S}^3 'high', B={B}: {n} strips of {per} "
+                f"planes on one card, max abs diff to the whole launch "
+                f"{diff:.1e}; {ms:.3f} ms summed against {whole_ms:.3f} ms "
+                f"whole")
+            check(diff == 0 and all(
+                torch.equal(s, whole[:, j * per:(j + 1) * per])
+                for j, s in enumerate(strips)),
+                f"{n} decode strips at {S}^3 differ from the whole launch")
+        del whole, strips
+
+
+def engine_meshes(dev, cards: int) -> list:
+    """(label, mesh) of the sharded engine's runs: (n, 1) and, on an even
+    count, (n/2, 2) over the cards, n the largest count up to the cards
+    that divides B; on one card, cuda:0 four times as (2, 2)."""
+    from garmentnets_tpu_torch.parallel.mesh import Mesh, make_mesh_2d
+    if cards == 1:
+        return [("(2, 2) of cuda:0 listed four times (one card)",
+                 Mesh([[dev] * 2] * 2, ("data", "space")))]
+    n = max(d for d in range(1, cards + 1) if B % d == 0)
+    out = [(f"make_mesh_2d({n}, 1)", make_mesh_2d(n, 1))]
+    if cards % 2 == 0:
+        h = max(d for d in range(1, cards // 2 + 1) if B % d == 0)
+        out.append((f"make_mesh_2d({h}, 2)", make_mesh_2d(h, 2)))
+    return out
+
+
+def sharded_engine(dev, cards: int) -> tuple:
+    """PredictEngine(mesh=...) at the full width of PipelineConfig(), B=8,
+    N=6000, 128^3, 'high', seeded weights with a live head, against the
+    one-device engine on the same batch: the WNF within WNF_LIMIT, the
+    shipped brick counts, each garment's vertex count, and the warp at the
+    one-device engine's vertices within WARP_LIMIT. Launches, stage ms and
+    garments/s per batch. Every sharded encode runs under
+    torch.cuda.set_sync_debug_mode("error"): the host must queue every
+    card's work before it waits on any, so an operation that synchronizes
+    fails the run. Returns the launches summed over the sharded batches."""
+    import torch
+    from garmentnets_tpu_torch.core.random_weights import seeded_init_
+    from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
+    from garmentnets_tpu_torch.kernels import _build
+    from garmentnets_tpu_torch.models.pipeline import (
+        ConvImplicitWNFPipeline, PipelineConfig)
+    cfg = PipelineConfig()
+    model = ConvImplicitWNFPipeline(cfg)
+    seeded_init_(model, 0)
+    rng = np.random.RandomState(12)
+    x = rng.rand(B, N, 3).astype(np.float32)
+    pos = (rng.rand(B, N, 3) - 0.5).astype(np.float32)
+    live_head_(model, x, pos, dev)
+    state = model.state_dict()
+    one = PredictEngine(cfg, state, volume_size=VOL, return_volume=True,
+                        device=dev)
+    ref = one.encode(x, pos)
+    ref_meshes = one.extract_meshes(ref)
+    ref_warps = one.warp_batch(ref, ref_meshes)
+    ref_counts = ref["active_counts"].cpu()
+    ref_verts = [0 if m is None else len(m[0]) for m in ref_meshes]
+    check(all(n > 0 for n in ref_verts), f"one-device meshes {ref_verts}")
+    one.close()
+    total = {k: 0 for k in _build.LAUNCHES}
+    for label, mesh in engine_meshes(dev, cards):
+        eng = PredictEngine(cfg, state, volume_size=VOL, return_volume=True,
+                            device=dev, mesh=mesh)
+        n_data, n_space = eng.n_data, mesh.axis_size("space")
+        devices = mesh.distinct_devices()
+        for i in range(MULTI_BATCHES):
+            _build.reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                enc = eng.encode(x, pos)
+                t_queued = time.perf_counter()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            for d in devices:
+                torch.cuda.synchronize(d)
+            t1 = time.perf_counter()
+            meshes = eng.extract_meshes(enc)
+            t2 = time.perf_counter()
+            warps = eng.warp_batch(enc, meshes)
+            t3 = time.perf_counter()
+            launches = dict(_build.LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            want = {"fps": 2 * n_data, "sa_tc": 2 * n_data,
+                    "dense_decode_tc": n_data * n_space, "ggm": n_data}
+            log(f"sharded engine {label} {mesh.shape}, batch {i}: launches "
+                f"{launches}; encode {(t1 - t0) * 1e3:.1f} ms (queued in "
+                f"{(t_queued - t0) * 1e3:.1f}), host MC "
+                f"{(t2 - t1) * 1e3:.1f}, warp {(t3 - t2) * 1e3:.1f}; "
+                f"{B / (t3 - t0):.3f} garments/s in sequence")
+            check(launches == want, f"sharded engine {label}: launches "
+                  f"{launches}, expected {want}")
+        wnf = torch.cat([sh["wnf_volume"].to(dev) for sh in enc["_shards"]])
+        err = float((wnf - ref["wnf_volume"]).abs().max())
+        counts = torch.cat([sh["active_counts"].cpu()
+                            for sh in enc["_shards"]])
+        verts = [0 if m is None else len(m[0]) for m in meshes]
+        common = eng.warp_batch(enc, ref_meshes)
+        werr = max(float(np.abs(w[k] - r[k]).max()) for w, r in
+                   zip(common, ref_warps) for k in ("warp_field", "verts_ggm"))
+        log(f"sharded engine {label} against one device: WNF max abs err "
+            f"{err:.2e} (limit {WNF_LIMIT:.0e}); shipped bricks "
+            f"{counts.tolist()} against {ref_counts.tolist()}; vertices "
+            f"{verts} against {ref_verts}; warp at the one-device vertices "
+            f"max abs err {werr:.2e} (limit {WARP_LIMIT:.0e})")
+        check(err <= WNF_LIMIT, f"sharded engine {label}: WNF off by {err}")
+        check(torch.equal(counts, ref_counts) or max(
+            abs(a - b) for a, b in zip(verts, ref_verts)) <= 0.01 * max(
+                ref_verts), f"sharded engine {label}: brick counts "
+              f"{counts.tolist()} and vertices {verts} against "
+              f"{ref_counts.tolist()} and {ref_verts}")
+        check(werr <= WARP_LIMIT, f"sharded engine {label}: warp off by "
+              f"{werr}")
+        check(all(w is not None and np.isfinite(w["warp_field"]).all()
+                  for w in warps), f"sharded engine {label}: warp results")
+        eng.close()
+        del enc, wnf
+    return total
+
+
+def ddp_cfg(stage: int):
+    """The data-parallel step's configuration at the shipped widths: stage
+    1 PointNet2NOCSConfig() with dropout off (the ranks' random streams
+    differ from one process's), stage 2 PipelineConfig()."""
+    from garmentnets_tpu_torch.models import pipeline, pointnet2_nocs
+    if stage == 1:
+        return pointnet2_nocs.PointNet2NOCSConfig(dropout=False)
+    return pipeline.PipelineConfig()
+
+
+def ddp_model(stage: int, cfg, group=None):
+    """(model, apply_fn, loss_fn) of a data-parallel step of `stage` at
+    `cfg`; stage 2's stage 1 frozen."""
+    from garmentnets_tpu_torch.models import pipeline, pointnet2_nocs
+    if stage == 1:
+        model = pointnet2_nocs.PointNet2NOCS(cfg)
+        return (model, lambda b, g: model(b["x"], b["pos"], generator=g),
+                lambda o, b: pointnet2_nocs.get_metrics(cfg, o, b, group)[0])
+    model = pipeline.ConvImplicitWNFPipeline(cfg)
+    model.pointnet2_nocs.requires_grad_(False)
+    return (model, lambda b, g: model(b),
+            lambda o, b: pipeline.pipeline_loss(cfg, o, b, group))
+
+
+def _digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_step_run(dev, stage: int, cfg, state: dict, batch: dict,
+                 steps: int, group=None, world: int = 1,
+                 rank: int = 0) -> dict:
+    """`steps` train steps (make_train_fns, Adam at 1e-4) of ddp_model on
+    this rank's rows of `batch`: each step's global loss, device ms and a
+    digest of the parameters after it; the first step's summed gradients
+    (before Adam) and their digest; peak memory and launches."""
+    import torch
+    # cuDNN's deterministic algorithms, so that a rerun of the same step
+    # repeats its gradients (max_pool3d's backward still adds atomically)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        return _ddp_steps(dev, stage, cfg, state, batch, steps, group,
+                          world, rank)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _ddp_steps(dev, stage, cfg, state, batch, steps, group, world, rank):
+    import torch
+    from garmentnets_tpu_torch.harness.training import (
+        batch_to_device, make_adam, make_train_fns)
+    from garmentnets_tpu_torch.kernels import _build
+    model, apply_fn, loss_fn = ddp_model(stage, cfg, group)
+    model.load_state_dict(state)
+    model.to(dev)
+    opt = make_adam(model, 1e-4)
+    grads = {}
+    adam_step = opt.step
+
+    def step_after_snapshot():
+        if not grads:
+            grads.update({n: p.grad.clone() for n, p in
+                          model.named_parameters() if p.grad is not None})
+        return adam_step()
+
+    opt.step = step_after_snapshot
+    train_step, _ = make_train_fns(model, apply_fn, loss_fn, opt, group)
+    rows = batch_to_device(batch, dev, world, rank)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    out = {"loss": [], "ms": [], "params": []}
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = train_step(rows)
+        end.record()
+        end.synchronize()
+        out["ms"].append(start.elapsed_time(end))
+        out["loss"].append(float(metrics["loss"]))
+        out["params"].append(_digest(model.parameters()))
+    out.update(grads={n: g.cpu() for n, g in grads.items()},
+               grad_digest=_digest(grads.values()),
+               peak=torch.cuda.max_memory_allocated(dev),
+               launches=dict(_build.LAUNCHES), device=str(dev))
+    return out
+
+
+def ddp_rank(out_dir: str, device_type: str, stage: int, cfg,
+             state: dict, batch: dict, steps: int) -> None:
+    """One rank of the data-parallel check (started by launch_ranks), on
+    the card that init_distributed chose for it."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    out = ddp_step_run(dev, stage, cfg, state, batch, steps,
+                       dist.group.WORLD, dist.get_world_size(), rank)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def data_parallel_training(dev, cards: int, tmp: pathlib.Path) -> dict:
+    """Two ranks of each training stage at the shipped widths, nccl on two
+    cards where there are two, else gloo with both ranks on cuda:0 (asked
+    for explicitly): the ranks' parameters bit-equal after every step,
+    their summed gradients bit-equal; the first step's loss and summed
+    gradients within tests/test_torch_train.py's bars of one process's
+    step on the same rows (loss 1e-5, gradients 1e-4 of each tensor's
+    largest entry), or SPREAD_FACTOR times that step's own change under a
+    1e-6 jitter of the weights or the input colours where that is larger,
+    but never above DDP_BAR_CAP of the tensor's largest entry. At the
+    shipped widths a train step of either stage is ill-conditioned at
+    rounding level: under that jitter its gradients move by up to a few
+    percent of a tensor's largest entry (a max pooling's or a bin
+    argmax's choice flips), while a rerun of the same step repeats them
+    to ~1e-6 of it. Returns the ranks' launches summed."""
+    import torch
+    from garmentnets_tpu_torch.core.random_weights import init_like_jax_
+    from garmentnets_tpu_torch.parallel.mesh import launch_ranks
+    backend = "nccl" if cards >= DDP_RANKS else "gloo"
+    log(f"data-parallel training: {DDP_RANKS} ranks, backend {backend}"
+        + ("" if backend == "nccl" else
+           ", both ranks on cuda:0 (one card; gloo asked for explicitly)"))
+    total = {}
+    gpu = torch.cuda.get_device_name(0)
+    for stage in (1, 2):
+        cfg = ddp_cfg(stage)
+        model = ddp_model(stage, cfg)[0]
+        init_like_jax_(model, torch.Generator().manual_seed(0))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        del model
+        batch = train_batch(stage, seed=30 + stage, B=DDP_B[stage], N=N,
+                            M=N)
+        ref = ddp_step_run(dev, stage, cfg, state, batch, 1)
+        rerun = ddp_step_run(dev, stage, cfg, state, batch, 1)
+        gen = torch.Generator().manual_seed(3)
+        jittered = {k: (v * (1 + 1e-6 * torch.randn(v.shape, generator=gen))
+                        if v.is_floating_point() else v)
+                    for k, v in state.items()}
+        colours = batch["x"] * (1 + 1e-6 * np.random.RandomState(4).randn(
+            *batch["x"].shape)).astype(np.float32)
+        moved = [ddp_step_run(dev, stage, cfg, jittered, batch, 1),
+                 ddp_step_run(dev, stage, cfg, state,
+                              dict(batch, x=colours), 1)]
+        torch.cuda.empty_cache()
+        run_dir = tmp / f"ddp_s{stage}"
+        run_dir.mkdir()
+        t0 = time.perf_counter()
+        launch_ranks(ddp_rank, DDP_RANKS, args=(
+            str(run_dir), dev.type, stage, cfg, state, batch,
+            DDP_STEPS[stage]), device=dev.type, backend=backend,
+            timeout_s=DDP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(run_dir / f"rank{r}.pt", weights_only=False)
+                 for r in range(DDP_RANKS)]
+        r0 = ranks[0]
+        check(all(r["params"] == r0["params"] for r in ranks),
+              f"stage {stage}: the ranks' parameters differ after a step")
+        check(all(r["grad_digest"] == r0["grad_digest"] for r in ranks)
+              and all(r["loss"] == r0["loss"] for r in ranks),
+              f"stage {stage}: the ranks' gradients or losses differ")
+        check(sorted(r0["grads"]) == sorted(ref["grads"]),
+              f"stage {stage}: gradient names differ")
+        # per tensor, as fractions of its largest entry: the bar, the
+        # ranks' error and a rerun's change
+        ratios, bars, errs, reruns, n_spread, n_cap = [], [], [], [], 0, 0
+        for name, g in ref["grads"].items():
+            top = float(g.abs().max())
+            spread = max(float((m["grads"][name] - g).abs().max())
+                         for m in moved)
+            bar = max(1e-4 * top, SPREAD_FACTOR * spread)
+            n_spread += bar > 1e-4 * top
+            n_cap += bar > DDP_BAR_CAP * top
+            bar = min(bar, DDP_BAR_CAP * top)
+            err = float((r0["grads"][name] - g).abs().max())
+            ratios.append((err / bar if bar > 0 else float(err > 0), name))
+            if top > 0:
+                bars.append((bar / top, name))
+                errs.append((err / top, name))
+                reruns.append((float((rerun["grads"][name] - g).abs()
+                                     .max()) / top, name))
+        spread = max(abs(m["loss"][0] - ref["loss"][0]) for m in moved)
+        bar = max(1e-5 * abs(ref["loss"][0]), SPREAD_FACTOR * spread)
+        ratios.append((abs(r0["loss"][0] - ref["loss"][0]) / bar, "loss"))
+        ratios.sort(reverse=True)
+        ratio, worst = ratios[0]
+        for what, fr in (("bars", bars), ("ranks' errors", errs),
+                         ("a rerun's changes", reruns)):
+            fr.sort(reverse=True)
+            log(f"ddp stage {stage}: largest {what} as a fraction of the "
+                f"tensor's largest entry: "
+                + ", ".join(f"{f:.3e} ({n})" for f, n in fr[:3]))
+        per_step = {2: {"fps": 2, "sa_tc": 2}, 1: {"fps": 2, "sa_tc": 0}}
+        want = {"fps": per_step[stage]["fps"] * DDP_STEPS[stage],
+                "sa_tc": per_step[stage]["sa_tc"] * DDP_STEPS[stage],
+                "dense_decode_tc": 0, "ggm": 0}
+        for r in ranks:
+            timed = r["ms"][1:]
+            ms = statistics.median(timed)
+            log(f"ddp stage {stage} on {gpu}, rank on {r['device']}: "
+                f"{DDP_B[stage] // DDP_RANKS} of {DDP_B[stage]} rows, "
+                f"{ms:.3f} ms a step (steps "
+                f"{', '.join(f'{t:.3f}' for t in r['ms'])}), "
+                f"{DDP_B[stage] / ms * 1e3:.2f} samples/s, peak "
+                f"{r['peak'] / 2 ** 30:.3f} GiB; losses "
+                f"{[round(x, 6) for x in r['loss']]}; launches "
+                f"{r['launches']}")
+            check(r["launches"] == want, f"ddp stage {stage} launches "
+                  f"{r['launches']}, expected {want}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        log(f"ddp stage {stage}: one process's first step on the same "
+            f"{DDP_B[stage]} rows: loss {ref['loss'][0]:.6f} ({ref['ms'][0]:.3f}"
+            f" ms, cold) against {r0['loss'][0]:.6f}; worst error/bar "
+            f"{ratio:.3f} ({worst}; next "
+            f"{', '.join(f'{r:.3f} ({n})' for r, n in ratios[1:3])}); "
+            f"{n_spread} of {len(ref['grads'])} gradient bars set by the "
+            f"jitter spread, {n_cap} of them held at {DDP_BAR_CAP} of the "
+            f"tensor's largest entry; replicas bit-equal after each of "
+            f"{DDP_STEPS[stage]} steps; {wall:.1f} s with the ranks' start")
+        check(ratio <= 1.0, f"ddp stage {stage}: {worst} off the "
+              f"one-process step ({ratio:.3f} of its bar)")
+    return total
+
+
+def train_cli_on_cards(tmp: pathlib.Path, cards: int) -> None:
+    """The stage-1 train CLI as shipped (trainer.num_devices -1) on
+    trainer.device=cuda over phase_train's dataset, one epoch of one step:
+    one nccl rank a card, spawned by the CLI; one checkpoint set and one
+    metrics log, from rank 0, with a finite loss."""
+    from garmentnets_tpu_torch.core.config import load_config
+    from garmentnets_tpu_torch.harness import train_pointnet2
+    cfg = load_config("train_pointnet2_default", [
+        f"datamodule.zarr_path={tmp / 'data.zarr'}",
+        f"datamodule.dataset_split={TRAIN_SPLIT}",
+        "datamodule.volume_size=32", "trainer.device=cuda",
+        "trainer.max_epochs=1", "trainer.limit_train_batches=1"])
+    check(cfg["trainer"]["num_devices"] == -1,
+          "the shipped trainer.num_devices changed")
+    t0 = time.perf_counter()
+    run = train_pointnet2.main(cfg, run_dir=str(tmp / "train_cards"))
+    wall = time.perf_counter() - t0
+    recs, _ = run_summary(run)
+    losses = [r["train_loss"] for r in recs if "train_loss" in r]
+    ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+    check(len(losses) == 1 and np.isfinite(losses[0]),
+          f"train CLI on {cards} cards: losses {losses}")
+    check(len([c for c in ckpts if c.startswith("epoch=")]) == 1
+          and "last.ckpt" in ckpts,
+          f"train CLI on {cards} cards: checkpoints {ckpts}")
+    log(f"stage-1 train CLI, trainer.device=cuda, trainer.num_devices=-1: "
+        f"{cards} nccl ranks, B={B} ({B // cards} rows a rank), loss "
+        f"{losses[0]:.4f}, checkpoints {ckpts}, {wall:.1f} s with the "
+        "ranks' start")
+
+
+def phase_multi_gpu(dev, tmp: pathlib.Path) -> dict:
+    """Several cards, or one card standing in for them: (1) the decode's
+    D strips bit-equal to the whole launch; (2) the sharded engine against
+    the one-device engine, its encodes free of host syncs; (3)
+    data-parallel training on two ranks; (4) on two or more cards, the
+    stage-1 train CLI as shipped, one rank a card. Returns the launches
+    of the sharded engine's batches ("multi_gpu") and of the ranks of
+    (3) ("ddp")."""
+    import torch
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"cards: {cards}")
+    decode_strips(dev)
+    engine_launches = sharded_engine(dev, cards)
+    log("sharded encodes ran under torch.cuda.set_sync_debug_mode('error'):"
+        " no host sync")
+    ddp_launches = data_parallel_training(dev, cards, tmp)
+    if cards >= 2:
+        train_cli_on_cards(tmp, cards)
+    else:
+        log("one card: the train CLI's several nccl ranks need two or more")
+    log(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"multi_gpu": engine_launches, "ddp": ddp_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2020,16 +2490,19 @@ def main() -> int:
         launches.update(phase_variants(dev, tmp))
         launches.update(phase_large_volume(dev, tmp))
         launches.update(phase_train(dev, tmp)["launches"])
+        launches.update(phase_multi_gpu(dev, tmp))
     phase_serve(dev)
     phase_small_reference(dev)
 
     # launches over the driven paths: the main path at 'high', the predict
     # CLI, the two variant batches, the 256^3 engine's batches and CLI
-    # batch, and the predict run on the trained checkpoint (all at 'high')
-    # for the 'high' decode row, the main path's 'highest' batch for the
-    # 'highest' row, all of them and the two train CLIs for the rest
+    # batch, the predict run on the trained checkpoint and the sharded
+    # engine's batches (its decode strips; all at 'high') for the 'high'
+    # decode row, the main path's 'highest' batch for the 'highest' row,
+    # all of them, the two train CLIs and the data-parallel ranks for the
+    # rest
     at_high = ("high", "cli", "holes", "task_space", "large", "large_cli",
-               "train_predict")
+               "train_predict", "multi_gpu")
     for k, row in rows.items():
         if k == "dense_decode_tc":
             row["launches"] = sum(launches[p][k] for p in at_high)
@@ -2037,7 +2510,7 @@ def main() -> int:
             row["launches"] = launches["highest"]["dense_decode_tc"]
         else:
             row["launches"] = sum(launches[p][k] for p in at_high + (
-                "highest", "train_s1", "train_s2"))
+                "highest", "train_s1", "train_s2", "ddp"))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -97,6 +97,25 @@ class RunLogger:
         self._metrics_f.close()
 
 
+class NullLogger:
+    """A logger that keeps nothing: the data-parallel ranks other than
+    rank 0, which alone writes the run's records."""
+
+    def __init__(self, name: str = "null"):
+        self.name = name
+        self.summary: dict = {}
+
+    def log(self, data: dict, step: Optional[int] = None) -> None:
+        pass
+
+    def log_image(self, name: str, img: np.ndarray,
+                  step: Optional[int] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class WandbLogger:
     """Remote adapter: mirrors every call to wandb AND to a local RunLogger
     (the run dir stays self-contained — eval reads predict's local snapshot

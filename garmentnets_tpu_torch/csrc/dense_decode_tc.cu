@@ -68,6 +68,11 @@
 //   (b, d, h, w) order, so the blocks in flight share coarse rows in L2.
 //   Widths are zero-padded by the wrapper to NP in {64, 128, 256}; padded
 //   channels carry exact zeros.
+// - Strips: a launch decodes the D planes d_begin .. d_begin + d_count - 1
+//   into a [B, d_count, S, S] output (ops/dense_decode.dense_decode_sharded
+//   gives each device of a mesh's "space" axis one strip). The axis plans
+//   stay over the whole S and each voxel's arithmetic is the same, so a
+//   strip equals that slice of the whole volume bit for bit.
 //
 // Where the time goes (tools/profile_decode_tc.py; PERF.md): the phases of
 // a tile run one after another, so the tensor cores wait while the CUDA
@@ -114,7 +119,8 @@ struct Params {
   const uint8_t* wts;    // [n_mid][NP/kKc][PARTS] chunk images (bf16)
   const float* epi;      // [n_mid][3][NP] b, g, s (zero-padded)
   const float* head;     // [NP + 3]       k (zero-padded), b, g, s
-  float* out;            // [B][S][S][S]
+  float* out;            // [B][d_count][S][S]
+  int d_begin, d_count;  // the strip of D planes this launch decodes
   int n_mid, win, tiles_per_line;
   long long n_tiles;
 };
@@ -228,8 +234,11 @@ decode_tc_kernel(const Params p) {
     const int wt = static_cast<int>(tile % p.tiles_per_line);
     long long ln = tile / p.tiles_per_line;
     const int h = static_cast<int>(ln % S); ln /= S;
-    const int d = static_cast<int>(ln % S);
-    const long long b = ln / S;
+    const int dd = static_cast<int>(ln % p.d_count);   // plane in the strip
+    const int d = p.d_begin + dd;
+    const long long b = ln / p.d_count;
+    // the strip's output row of this line: [B][d_count][S][S]
+    float* const out_line = p.out + ((b * p.d_count + dd) * S + h) * S;
     const int w0 = wt * ROWS;
     const int nrows = min(ROWS, S - w0);
     const int wbase = p.lo_w[w0];
@@ -325,7 +334,7 @@ decode_tc_kernel(const Params p) {
         hsum += __shfl_xor_sync(0xffffffffu, hsum, 1);
         hsum += __shfl_xor_sync(0xffffffffu, hsum, 2);
         if (valid && (lane & 3) == 0)
-          p.out[((b * S + d) * S + h) * S + w] = affine_relu(
+          out_line[w] = affine_relu(
               hsum + p.head[NP], p.head[NP + 1], p.head[NP + 2]);
       }
     }
@@ -471,7 +480,7 @@ decode_tc_kernel(const Params p) {
             const int m = r0 + 8 * hf;
             const float v = kSplitN ? hs[hf] + head_part[m] : hs[hf];
             if ((lane & 3) == 0 && m < nrows)
-              p.out[((b * S + d) * S + h) * S + w0 + m] = affine_relu(
+              out_line[w0 + m] = affine_relu(
                   v + p.head[NP], p.head[NP + 1], p.head[NP + 2]);
           }
         }
@@ -542,12 +551,14 @@ extern "C" long long dense_decode_tc_smem(int np, int parts, int win) {
 
 extern "C" int dense_decode_tc_launch(
     const float* z, int B, int Dc, int Hc, int Wc, int C1, int S,
-    const int* lo_d, const float* w_d, const int* lo_h, const float* w_h,
+    int d_begin, int d_count, const int* lo_d, const float* w_d,
+    const int* lo_h, const float* w_h,
     const int* lo_w, const float* w_w, const float* aff0,
     const void* wts, const float* epi, const float* head, int n_mid,
     int np, int parts, int win, float* out, void* stream) {
   if (n_mid < 0 || n_mid > kMaxMid || parts < 1 || parts > 3 ||
-      C1 < 1 || C1 > np || win < 2 || B < 1 || S < 1)
+      C1 < 1 || C1 > np || win < 2 || B < 1 || S < 1 || d_begin < 0 ||
+      d_count < 1 || d_begin + d_count > S)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.z = z; p.Dc = Dc; p.Hc = Hc; p.Wc = Wc; p.C1 = C1; p.S = S;
@@ -555,7 +566,9 @@ extern "C" int dense_decode_tc_launch(
   p.lo_w = lo_w; p.w_w = w_w; p.aff0 = aff0;
   p.wts = static_cast<const uint8_t*>(wts); p.epi = epi; p.head = head;
   p.out = out; p.n_mid = n_mid; p.win = win;
-  p.n_tiles = static_cast<long long>(B) * S * S;   // lines; launch() tiles
+  p.d_begin = d_begin; p.d_count = d_count;
+  // lines (b, d, h) of the strip; launch() tiles them
+  p.n_tiles = static_cast<long long>(B) * d_count * S;
   const size_t smem = static_cast<size_t>(dense_decode_tc_smem(np, parts, win));
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   switch (np * 4 + parts) {

@@ -29,6 +29,18 @@ the predicted NOCS; hole prediction (`use_hole_prediction`, on only for a
 checkpoint with the mc-surface head) adds the head's logits as a fifth
 warp channel, at the same f16-rounded queries.
 
+Several devices (`mesh`, a parallel/mesh.Mesh on "data" and "space"
+axes, the JAX engine's mesh): one model replica and packed decoder a
+distinct device; a batch's rows split over "data" (a batch the axis does
+not divide is refused), and each data shard runs stage 1, the U-Net, the
+ggm, the bricks and the warp on its data device and its dense decode as
+one strip of D planes a device of its "space" row
+(ops/dense_decode.dense_decode_sharded). Every card runs the kernels on
+its own shard; the host queues every shard's work before it waits on
+any. The encoding holds one dict a shard (`"_shards"`), and the engine's
+methods walk them in batch order, so callers see the same results as
+from one device.
+
 The warp's query points are the mesh vertices rounded to float16, as the
 JAX engine's are (its f16 wire format): the nearest-voxel ggm gather
 floors q * (S - 1), and a vertex on a lattice plane floors to one side or
@@ -47,6 +59,7 @@ and events are skipped on the same code path.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -61,7 +74,7 @@ from garmentnets_tpu_torch.core.device import (
 from garmentnets_tpu_torch.models.pipeline import (
     ConvImplicitWNFPipeline, PipelineConfig)
 from garmentnets_tpu_torch.ops.dense_decode import (
-    check_precision, dense_decode, eval_layers)
+    check_precision, dense_decode, dense_decode_sharded, eval_layers)
 from garmentnets_tpu_torch.ops.gaussian import gaussian_gradient_magnitude
 from garmentnets_tpu_torch.ops.isosurface import (
     extract_active_bricks, pack_brick_pages, read_page_counts,
@@ -70,6 +83,7 @@ from garmentnets_tpu_torch.ops.marching_cubes import (
     marching_cubes, marching_cubes_bricks)
 from garmentnets_tpu_torch.ops.normals import (
     oct_decode_np, sample_gradient_normals_oct)
+from garmentnets_tpu_torch.parallel.mesh import shard_rows
 
 # the volume width from which the engine ships straddle masks by default
 MASKS_FROM_VOLUME = 192
@@ -159,8 +173,61 @@ def _record_event(device: torch.device):
     if device.type != "cuda":
         return None
     event = torch.cuda.Event()
-    event.record()
+    event.record(torch.cuda.current_stream(device))
     return event
+
+
+def _on(device: torch.device):
+    """The current-device context of a card (nothing on the CPU)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _key(device) -> torch.device:
+    """A device with its card index filled in (the current card for a
+    bare "cuda")."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def mesh_grid(mesh) -> np.ndarray:
+    """A mesh's devices as an [n_data, n_space] grid (an axis the mesh
+    lacks has size 1); axes other than "data" and "space" are refused."""
+    names = tuple(mesh.axis_names)
+    if not set(names) <= {"data", "space"}:
+        raise ValueError(f"the engine's mesh axes are 'data' and 'space', "
+                         f"got {names}")
+    grid = np.vectorize(_key, otypes=[object])(mesh.devices)
+    if "data" not in names:
+        grid, names = grid[None], ("data",) + names
+    if "space" not in names:
+        grid, names = grid[..., None], names + ("space",)
+    return grid if names == ("data", "space") else grid.T
+
+
+class _Replica:
+    """The model and packed decoder of one device."""
+
+    def __init__(self, cfg: PipelineConfig, device: torch.device,
+                 task_aabb):
+        self.device = device
+        self.model = ConvImplicitWNFPipeline(cfg).to(device).eval()
+        self.task_aabb = (None if task_aabb is None else torch.as_tensor(
+            np.asarray(task_aabb, np.float32), device=device))
+        self.vd_layers = None
+        self.vd_packed = None
+
+    def load_state_dict(self, state_dict: dict, precision: str) -> None:
+        self.model.load_state_dict(state_dict)
+        self.vd_layers = eval_layers(self.model.volume_decoder.mlp)
+        self.vd_packed = None
+        if self.device.type == "cuda":
+            from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+                pack_decoder)
+            with _on(self.device):
+                self.vd_packed = pack_decoder(self.vd_layers, precision)
 
 
 class PredictEngine:
@@ -175,7 +242,7 @@ class PredictEngine:
                  points_key: str = "datamodule.num_pc_sample",
                  use_hole_prediction: bool = False, task_aabb=None,
                  cube_masks: Optional[bool] = None,
-                 device_normals: bool = False):
+                 device_normals: bool = False, mesh=None):
         """state_dict: the pipeline's weights in the reference layout (see
         core/weights.py). decode_precision: the dense decode's tier, 'high'
         (bf16x3, the JAX engine's default), 'default' (bf16) or 'highest'
@@ -186,23 +253,38 @@ class PredictEngine:
         sim AABB [2, 3], required by a task-space cfg. cube_masks: ship
         the per-brick straddle masks (None: from volume_size 192 on, the
         JAX engine's rule). device_normals: the vertex normals from the
-        warp instead of host marching cubes."""
+        warp instead of host marching cubes. mesh: a parallel/mesh.Mesh
+        with "data" and/or "space" axes to run on instead of `device`
+        (volume_size must divide over "space")."""
         if cfg.volume_task_space and task_aabb is None:
             raise ValueError(
                 "cfg.volume_task_space=True requires task_aabb "
                 "(dataset.cloth_sim_aabb, shape [2,3])")
         self.decode_precision = check_precision(decode_precision)
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self.mesh = mesh
+        kinds = ([resolve_device(device)] if mesh is None else
+                 [resolve_device(d) for d in mesh.distinct_devices()])
+        n_space = 1 if mesh is None else mesh.axis_size("space")
+        if volume_size % n_space:
+            raise ValueError(
+                f"prediction.volume_size={volume_size} does not divide over "
+                f"the mesh's {n_space}-way 'space' axis")
+        if any(d.type == "cuda" for d in kinds):
             check_card_limits(cfg, volume_size, gradient_sigma,
                               num_points=num_points, points_key=points_key)
+        if mesh is None:
+            self._grid = np.empty((1, 1), dtype=object)
+            self._grid[0, 0] = _key(kinds[0])
+        else:
+            self._grid = mesh_grid(mesh)
+        # the first data shard's device: the engine's device
+        self.device = self._grid[0, 0]
+        devices = list(dict.fromkeys(self._grid.reshape(-1)))
         self.cfg = cfg
         self.use_hole_prediction = bool(use_hole_prediction
                                         and cfg.has_mc_surface_decoder)
-        self.task_aabb = (None if task_aabb is None else torch.as_tensor(
-            np.asarray(task_aabb, np.float32), device=self.device))
-        self.model = ConvImplicitWNFPipeline(cfg)
-        self.model.to(self.device).eval()
+        self._replicas = {d: _Replica(cfg, d, task_aabb) for d in devices}
+        self.model = self._replicas[self.device].model
         self.volume_size = volume_size
         self.gradient_sigma = gradient_sigma
         self.iso_level = float(iso_level)
@@ -224,26 +306,34 @@ class PredictEngine:
             mc_threads = min(4, os.cpu_count() or 1)
         self._pool = shared_mc_pool(mc_threads)
 
-    def load_state_dict(self, state_dict: dict) -> None:
-        """Load new weights (the same architecture), re-fold the volume
-        decoder's layers, which the dense decode reads, and, for the
-        tensor-core kernel on the card, re-pack their bf16 parts."""
-        self.model.load_state_dict(state_dict)
-        self._vd_layers = eval_layers(self.model.volume_decoder.mlp)
-        self._vd_packed = None
-        if self.device.type == "cuda":
-            from garmentnets_tpu_torch.kernels.dense_decode_tc import (
-                pack_decoder)
-            self._vd_packed = pack_decoder(self._vd_layers,
-                                           self.decode_precision)
+    @property
+    def n_data(self) -> int:
+        """The data shards a batch splits into (1 without a mesh)."""
+        return self._grid.shape[0]
 
-    def _decode(self, feature_volume: torch.Tensor) -> torch.Tensor:
-        """The dense WNF at the engine's tier. The transposed volume decoded
-        at the xyz lattice equals the volume decoded at the flipped
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load new weights (the same architecture) into every replica,
+        re-fold the volume decoder's layers, which the dense decode reads,
+        and, for the tensor-core kernel on a card, re-pack their bf16
+        parts."""
+        for rep in self._replicas.values():
+            rep.load_state_dict(state_dict, self.decode_precision)
+
+    def _decode(self, feature_volume: torch.Tensor,
+                space_devices=None) -> torch.Tensor:
+        """The dense WNF at the engine's tier, on the feature volume's
+        device or as strips over `space_devices`. The transposed volume
+        decoded at the xyz lattice equals the volume decoded at the flipped
         lattice: ImplicitWNFDecoder's axis quirk."""
-        return dense_decode(feature_volume.transpose(1, 3).contiguous(),
-                            self._vd_layers, self.volume_size,
-                            self.decode_precision, packed=self._vd_packed)
+        rep = self._replicas[_key(feature_volume.device)]
+        fv = feature_volume.transpose(1, 3).contiguous()
+        if space_devices is None or list(space_devices) == [rep.device]:
+            return dense_decode(fv, rep.vd_layers, self.volume_size,
+                                self.decode_precision, packed=rep.vd_packed)
+        return dense_decode_sharded(
+            fv, rep.vd_layers, self.volume_size, self.decode_precision,
+            space_devices, {d: self._replicas[d].vd_packed
+                            for d in space_devices})
 
     def close(self) -> None:
         """Let go of the marching-cubes pool; the pool itself is shared by
@@ -254,29 +344,49 @@ class PredictEngine:
     @torch.no_grad()
     @full_f32()
     def encode(self, x, pos) -> dict:
-        """x, pos: [B, N, 3] (numpy or tensors) -> dict of device tensors."""
-        x = to_device(x, self.device, torch.float32)
-        pos = to_device(pos, self.device, torch.float32)
-        # the encode/* ranges name the stages in a torch.profiler trace
-        # (tools/profile_encode.py); without a profiler they cost a few us
-        with record_function("encode/stage1_pointnet2"):
-            p2 = self.model.pointnet2_forward(x, pos)
-            if self.cfg.volume_task_space:
-                aabb = self.task_aabb.expand(pos.shape[0], 2, 3)
-                p2 = self.model.apply_volume_task_space(pos, aabb, p2)
-        with record_function("encode/aggregate_unet3d"):
-            feature_volume = self.model.unet3d_forward(p2["nocs_data"])
-        with record_function("encode/dense_decode"):
-            wnf = self._decode(feature_volume)
-        with record_function("encode/ggm"):
-            ggm = gaussian_gradient_magnitude(wnf, self.gradient_sigma)
-        with record_function("encode/bricks_and_pages"):
-            base, vals, counts = extract_active_bricks(
-                wnf, self.iso_level, self.brick_cap,
-                with_masks=self.cube_masks)
-            # page 0 carries the counts in a header row
-            pages = pack_brick_pages(base, vals, self.brick_page,
-                                     counts=counts)
+        """x, pos: [B, N, 3] (numpy or tensors) -> dict of device tensors;
+        with a mesh, {"_shards": [one such dict a data shard]}, every
+        shard's work queued before the host waits on any."""
+        if self.mesh is None:
+            return self._encode_shard(x, pos, self._grid[0])
+        B = x.shape[0]
+        if B % self.n_data:
+            raise ValueError(f"a batch of {B} rows does not divide over the "
+                             f"mesh's {self.n_data}-way 'data' axis")
+        return {"_shards": [
+            self._encode_shard(shard_rows(x, self.n_data, i),
+                               shard_rows(pos, self.n_data, i), row)
+            for i, row in enumerate(self._grid)]}
+
+    def _encode_shard(self, x, pos, row) -> dict:
+        """One data shard's encode on its device row[0], its dense decode
+        as strips over `row` (the shard's "space" devices)."""
+        dev = row[0]
+        rep = self._replicas[dev]
+        with _on(dev):
+            x = to_device(x, dev, torch.float32)
+            pos = to_device(pos, dev, torch.float32)
+            # the encode/* ranges name the stages in a torch.profiler trace
+            # (tools/profile_encode.py); without a profiler they cost a few
+            # us
+            with record_function("encode/stage1_pointnet2"):
+                p2 = rep.model.pointnet2_forward(x, pos)
+                if self.cfg.volume_task_space:
+                    aabb = rep.task_aabb.expand(pos.shape[0], 2, 3)
+                    p2 = rep.model.apply_volume_task_space(pos, aabb, p2)
+            with record_function("encode/aggregate_unet3d"):
+                feature_volume = rep.model.unet3d_forward(p2["nocs_data"])
+            with record_function("encode/dense_decode"):
+                wnf = self._decode(feature_volume, list(row))
+            with record_function("encode/ggm"):
+                ggm = gaussian_gradient_magnitude(wnf, self.gradient_sigma)
+            with record_function("encode/bricks_and_pages"):
+                base, vals, counts = extract_active_bricks(
+                    wnf, self.iso_level, self.brick_cap,
+                    with_masks=self.cube_masks)
+                # page 0 carries the counts in a header row
+                pages = pack_brick_pages(base, vals, self.brick_page,
+                                         counts=counts)
         nd = p2["nocs_data"]
         out = {
             "active_pages": pages,
@@ -296,26 +406,42 @@ class PredictEngine:
     def prefetch(self, enc: dict, extra_keys=()) -> None:
         """Start copying every brick page of `enc`, and the tensors named
         in `extra_keys`, into pinned host buffers, and record an event
-        behind the copies. All pages are copied (~4.5 MB at B=8, 128^3,
-        ~20 MB at 256^3 with masks), so no count has to come back first.
-        The buffers hold stale bytes until the event has completed: read
-        them only through `host_outputs`."""
-        pages = enc["active_pages"]
-        host = {"active_pages": [_to_host(p) for p in pages]}
-        host.update({k: _to_host(enc[k]) for k in extra_keys})
-        # the source page list is kept to tell a stale prefetch apart
-        enc["_prefetch"] = (pages, host, _record_event(self.device))
+        behind the copies (one a shard). All pages are copied (~4.5 MB at
+        B=8, 128^3, ~20 MB at 256^3 with masks), so no count has to come
+        back first. The buffers hold stale bytes until the event has
+        completed: read them only through `host_outputs`."""
+        for sh in enc.get("_shards", [enc]):
+            pages = sh["active_pages"]
+            dev = _key(pages[0].device)
+            with _on(dev):
+                host = {"active_pages": [_to_host(p) for p in pages]}
+                host.update({k: _to_host(sh[k]) for k in extra_keys})
+                # the source page list is kept to tell a stale prefetch
+                # apart
+                sh["_prefetch"] = (pages, host, _record_event(dev))
 
     def encode_done(self, enc: dict) -> bool:
         """Whether the prefetched copies of `enc` (and so its encode) have
         completed; True on the CPU."""
-        event = enc["_prefetch"][2]
-        return event is None or event.query()
+        return all(sh["_prefetch"][2] is None or sh["_prefetch"][2].query()
+                   for sh in enc.get("_shards", [enc]))
 
     def host_outputs(self, enc: dict) -> dict:
-        """The prefetched host tensors of `enc`, after waiting on its event
-        only (prefetching first if it was not, or if its pages were
-        replaced since)."""
+        """The prefetched host tensors of `enc`, after waiting on its
+        events only (prefetching first if it was not, or if its pages were
+        replaced since); a sharded encoding's shards concatenated in batch
+        order."""
+        if "_shards" not in enc:
+            return self._host_outputs_shard(enc)
+        outs = [self._host_outputs_shard(sh) for sh in enc["_shards"]]
+        merged = {k: torch.cat([o[k] for o in outs])
+                  for k in outs[0] if k != "active_pages"}
+        merged["active_pages"] = [
+            torch.cat(pages) for pages in zip(*(o["active_pages"]
+                                                for o in outs))]
+        return merged
+
+    def _host_outputs_shard(self, enc: dict) -> dict:
         pf = enc.get("_prefetch")
         if pf is None or pf[0] is not enc["active_pages"]:
             self.prefetch(enc)
@@ -330,7 +456,11 @@ class PredictEngine:
         they carry them). Returns per garment (verts, faces, values,
         normals), or None where no surface was found; normals is None with
         device_normals (the warp returns them)."""
-        pages = self.host_outputs(enc)["active_pages"]
+        return [m for sh in enc.get("_shards", [enc])
+                for m in self._extract_meshes_shard(sh)]
+
+    def _extract_meshes_shard(self, enc: dict) -> list:
+        pages = self._host_outputs_shard(enc)["active_pages"]
         p0 = pages[0].numpy()
         counts = read_page_counts(p0)
         B = len(counts)
@@ -382,16 +512,29 @@ class PredictEngine:
     def _dense_wnf(self, enc: dict) -> torch.Tensor:
         if "wnf_volume" in enc:
             return enc["wnf_volume"]
-        return self._decode(enc["feature_volume"])
+        fv = enc["feature_volume"]
+        with _on(_key(fv.device)):
+            return self._decode(fv)
 
     @torch.no_grad()
     @full_f32()
     def warp_dispatch(self, enc: dict, meshes: list):
         """Queue the surface decoder + ggm gather (+ the mc-surface logits
         with hole prediction, + the normals' octahedral codes with device
-        normals) over all garments' mesh vertices and the copy of the
-        result into a pinned host buffer; returns a handle for
-        warp_collect."""
+        normals) over all garments' mesh vertices, each shard's on its
+        device, and the copy of the result into a pinned host buffer;
+        returns a handle for warp_collect."""
+        if "_shards" not in enc:
+            return self._warp_dispatch_shard(enc, meshes)
+        handles, start = [], 0
+        for sh in enc["_shards"]:
+            n = sh["feature_volume"].shape[0]
+            handles.append(self._warp_dispatch_shard(
+                sh, meshes[start:start + n]))
+            start += n
+        return {"_shards": handles}
+
+    def _warp_dispatch_shard(self, enc: dict, meshes: list):
         sizes = [0 if m is None else len(m[0]) for m in meshes]
         vmax = max(sizes) if sizes else 0
         if vmax == 0:
@@ -400,27 +543,35 @@ class PredictEngine:
         for b, m in enumerate(meshes):
             if m is not None:
                 q[b, :len(m[0])] = m[0]
-        q = to_device(q, self.device).float()
-        warp = self.model.surface_decoder_forward(enc["feature_volume"], q)
-        ggm = enc["wnf_ggm"]
-        B, S = ggm.shape[0], self.volume_size
-        nn_idx = torch.clamp((q * (S - 1)).to(torch.int64), 0, S - 1)
-        flat = (nn_idx[..., 0] * S + nn_idx[..., 1]) * S + nn_idx[..., 2]
-        ggm_at = torch.gather(ggm.reshape(B, -1), 1, flat)
-        cols = [warp, ggm_at[..., None]]
-        if self.use_hole_prediction:
-            cols.append(self.model.mc_surface_decoder_forward(
-                enc["feature_volume"], q)[..., :1])
-        if self.device_normals:
-            # the u16 codes as exact float32 integers (exact below 2^24)
-            codes = sample_gradient_normals_oct(
-                enc["wnf_volume"], q, self.gradient_direction == "ascent")
-            cols.append(codes.to(torch.float32)[..., None])
-        out = _to_host(torch.cat(cols, dim=-1))
-        return (out, _record_event(self.device), sizes)
+        dev = _key(enc["feature_volume"].device)
+        model = self._replicas[dev].model
+        with _on(dev):
+            q = to_device(q, dev).float()
+            warp = model.surface_decoder_forward(enc["feature_volume"], q)
+            ggm = enc["wnf_ggm"]
+            B, S = ggm.shape[0], self.volume_size
+            nn_idx = torch.clamp((q * (S - 1)).to(torch.int64), 0, S - 1)
+            flat = ((nn_idx[..., 0] * S + nn_idx[..., 1]) * S
+                    + nn_idx[..., 2])
+            ggm_at = torch.gather(ggm.reshape(B, -1), 1, flat)
+            cols = [warp, ggm_at[..., None]]
+            if self.use_hole_prediction:
+                cols.append(model.mc_surface_decoder_forward(
+                    enc["feature_volume"], q)[..., :1])
+            if self.device_normals:
+                # the u16 codes as exact float32 integers (exact below
+                # 2^24)
+                codes = sample_gradient_normals_oct(
+                    enc["wnf_volume"], q, self.gradient_direction == "ascent")
+                cols.append(codes.to(torch.float32)[..., None])
+            out = _to_host(torch.cat(cols, dim=-1))
+            return (out, _record_event(dev), sizes)
 
     def warp_collect(self, handle) -> list:
-        """Wait on the handle's event only and split the host result."""
+        """Wait on the handle's events only and split the host result."""
+        if isinstance(handle, dict):
+            return [w for h in handle["_shards"]
+                    for w in self.warp_collect(h)]
         out, event, sizes = handle
         if out is None:
             return [None] * len(sizes)

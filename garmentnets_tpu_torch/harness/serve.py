@@ -100,11 +100,20 @@ class PredictService:
     def __init__(self, checkpoint_path, batch_size: int = 8,
                  num_points: int = 6000, volume_size: int = 128,
                  batch_window_ms: float = 20.0,
-                 engine_kwargs: dict | None = None, device="cuda"):
+                 engine_kwargs: dict | None = None, device="cuda",
+                 mesh=None):
+        """mesh: a parallel/mesh.Mesh to run the engine on (instead of
+        `device`), as the JAX service's; its "data" axis must divide
+        batch_size, the size every device batch is padded to."""
         from garmentnets_tpu_torch.core.checkpoint import (
             load_pipeline_checkpoint)
         from garmentnets_tpu_torch.harness.predict_engine import (
             PredictEngine)
+        n_data = 1 if mesh is None else mesh.axis_size("data")
+        if int(batch_size) % n_data:
+            raise ValueError(
+                f"server.batch_size={batch_size} does not divide over the "
+                f"mesh's {n_data}-way 'data' axis")
         cfg, state_dict = load_pipeline_checkpoint(checkpoint_path)
         self.cfg = cfg
         self.batch_size = int(batch_size)
@@ -113,7 +122,7 @@ class PredictService:
         self.engine = PredictEngine(
             cfg, state_dict, volume_size=int(volume_size), device=device,
             num_points=self.num_points, points_key="server.num_points",
-            **(engine_kwargs or {}))
+            mesh=mesh, **(engine_kwargs or {}))
         self._queue: "queue.Queue[_Job]" = queue.Queue()
         self._stop = threading.Event()
         self._pending_state = None   # hot-reload staging (lock-guarded)

@@ -26,12 +26,20 @@ from garmentnets_tpu_torch.core.builders import (
 from garmentnets_tpu_torch.core.checkpoint import load_pointnet2_checkpoint
 from garmentnets_tpu_torch.core.random_weights import init_like_jax_
 from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule
-from garmentnets_tpu_torch.harness.training import make_trainer, run_training
+from garmentnets_tpu_torch.harness.training import (
+    make_trainer, run_ranks, run_training)
 from garmentnets_tpu_torch.models.pipeline import (
     ConvImplicitWNFPipeline, pipeline_loss)
 
 
 def main(cfg, run_dir=None) -> pathlib.Path:
+    """Train on every rank of the run (harness/training.run_ranks);
+    returns the run directory."""
+    return pathlib.Path(run_ranks(train, cfg, run_dir))
+
+
+def train(cfg, run_dir=None) -> pathlib.Path:
+    """One rank's training (the whole run without a process group)."""
     trainer_cfg = cfg["trainer"]
     run_dir = config_mod.make_run_dir(run_dir=run_dir)
     (run_dir / "checkpoints").mkdir(exist_ok=True)
@@ -49,13 +57,14 @@ def main(cfg, run_dir=None) -> pathlib.Path:
 
     datamodule = ConvImplicitWNFDataModule(**cfg["datamodule"])
     datamodule.prepare_data()
-    config_mod.dump_config(cfg, run_dir)
+    if trainer.rank == 0:
+        config_mod.dump_config(cfg, run_dir)
 
     def apply_fn(batch, generator):
         return model(batch)
 
     def loss_fn(out, batch):
-        return pipeline_loss(pipe_cfg, out, batch)
+        return pipeline_loss(pipe_cfg, out, batch, trainer.group)
 
     vis_fn = None
     conv_cfg = cfg["conv_implicit_model"]

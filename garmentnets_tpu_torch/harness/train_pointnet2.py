@@ -8,8 +8,12 @@ PointNet2NOCS from flax's default initializers (seeded by `trainer.seed`,
 default 0), trains with Adam on the CE binning loss, and writes top-k and
 last checkpoints with their hparams, metrics.jsonl, summary.json and the
 per-epoch PNGs into the run directory. Trains on the card unless
-`trainer.device=cpu`; `trainer.num_devices` must be -1 or 1.
-`trainer.seed` also seeds dropout and the train loader's shuffle.
+`trainer.device=cpu`. `trainer.num_devices` (-1: every card; one process
+on the CPU) sets the data-parallel ranks: n > 1 spawns n ranks on
+localhost (nccl, one card a rank; gloo on the CPU), and under torchrun
+the CLI joins torchrun's group (harness/training.run_ranks). Only rank 0
+writes the run's records and checkpoints. `trainer.seed` also seeds
+dropout (rank r: seed + 1000003 r) and the train loader's shuffle.
 """
 from __future__ import annotations
 
@@ -23,12 +27,20 @@ from garmentnets_tpu_torch.core.builders import (
     build_pointnet2_config, pointnet2_hparams)
 from garmentnets_tpu_torch.core.random_weights import init_like_jax_
 from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule
-from garmentnets_tpu_torch.harness.training import make_trainer, run_training
+from garmentnets_tpu_torch.harness.training import (
+    make_trainer, run_ranks, run_training)
 from garmentnets_tpu_torch.models.pointnet2_nocs import (
     PointNet2NOCS, get_metrics)
 
 
 def main(cfg, run_dir=None) -> pathlib.Path:
+    """Train on every rank of the run (harness/training.run_ranks);
+    returns the run directory."""
+    return pathlib.Path(run_ranks(train, cfg, run_dir))
+
+
+def train(cfg, run_dir=None) -> pathlib.Path:
+    """One rank's training (the whole run without a process group)."""
     trainer_cfg = cfg["trainer"]
     run_dir = config_mod.make_run_dir(run_dir=run_dir)
     (run_dir / "checkpoints").mkdir(exist_ok=True)
@@ -41,13 +53,14 @@ def main(cfg, run_dir=None) -> pathlib.Path:
     init_like_jax_(model, torch.Generator().manual_seed(
         trainer_cfg.get("seed", 0)))
     model.to(trainer.device)
-    config_mod.dump_config(cfg, run_dir)
+    if trainer.rank == 0:
+        config_mod.dump_config(cfg, run_dir)
 
     def apply_fn(batch, generator):
         return model(batch["x"], batch["pos"], generator=generator)
 
     def loss_fn(out, batch):
-        return get_metrics(model_cfg, out, batch)[0]
+        return get_metrics(model_cfg, out, batch, trainer.group)[0]
 
     vis_fn = None
     vis_per_items = cfg["model"].get("vis_per_items", 0)

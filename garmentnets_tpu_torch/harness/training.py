@@ -11,27 +11,44 @@
   val_loss, top-k and last checkpoints, `best_checkpoint` in the summary
   and an optional torch.profiler trace of the first epochs.
 
-One device: `num_devices` of -1 or 1. The JAX trainer's data parallelism
-over a device mesh is not ported.
+Data parallelism (`trainer.num_devices`, the JAX trainer's mesh): one
+process a rank on torch.distributed (`run_ranks`: spawned ranks on
+localhost, or torchrun's). Every rank reads the same global batch, pads
+it to a multiple of the world size by repeating row 0 as the JAX
+trainer's `_prep` does, and keeps its own rows, `_valid_mask` 0 on the
+padded ones. BatchNorm takes its statistics over the whole padded global
+batch and every loss is the rank's share of the global masked mean
+(models/mlp.py, models/losses.py), so after one all-reduce (a sum) of the
+gradients in one flat bucket every rank holds the global batch's
+gradient and runs the same Adam step: the replicas stay equal. Only rank
+0 logs, runs the per-epoch images and writes checkpoints.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from garmentnets_tpu_torch.core import config as config_mod
 from garmentnets_tpu_torch.core.checkpoint import (
     TopKCheckpointManager, resume_training, training_checkpoint)
 from garmentnets_tpu_torch.core.device import (
     full_f32, resolve_device, to_device)
-from garmentnets_tpu_torch.core.logging import make_logger
+from garmentnets_tpu_torch.core.logging import NullLogger, make_logger
+from garmentnets_tpu_torch.models.mlp import set_batch_norm_group
+from garmentnets_tpu_torch.parallel.mesh import (
+    init_distributed, launch_ranks, pad_batch_to, shard_rows)
 
 # optax.adam's defaults
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 FLUSH_EVERY = 32
+# rank r draws dropout from seed + DROPOUT_SEED_STRIDE * r
+DROPOUT_SEED_STRIDE = 1_000_003
 
 
 def metrics_to_host(metric_dicts: list) -> list:
@@ -82,12 +99,44 @@ def make_adam(model: torch.nn.Module,
         lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
+def all_reduce_grads(params, group) -> None:
+    """Sum the gradients of `params` over the ranks of `group`, in one
+    flat bucket (the parameters without a gradient are the same on every
+    rank, and stay without one)."""
+    with_grad = [p for p in params if p.grad is not None]
+    if not with_grad:
+        return
+    flat = torch.cat([p.grad.reshape(-1) for p in with_grad])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    for p, g in zip(with_grad, flat.split([p.numel() for p in with_grad])):
+        p.grad.copy_(g.view_as(p))
+
+
+def global_metrics(metrics: dict, group) -> dict:
+    """Each metric's global value, the sum of the ranks' shares, in one
+    all-reduce; the metrics as they are without a group."""
+    if group is None:
+        return metrics
+    keys = list(metrics)
+    vec = torch.stack([metrics[k].detach().float().reshape(())
+                       for k in keys])
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=group)
+    return dict(zip(keys, vec.unbind()))
+
+
 def make_train_fns(model: torch.nn.Module, apply_fn: Callable,
-                   loss_fn: Callable, optimizer: torch.optim.Optimizer):
+                   loss_fn: Callable, optimizer: torch.optim.Optimizer,
+                   group=None):
     """apply_fn(batch, generator) -> the model's outputs; loss_fn(out,
     batch) -> metrics with 'loss'. Returns (train_step(batch, generator)
     -> metrics, eval_step(batch) -> metrics), metrics as detached device
-    scalars."""
+    scalars. group: the process group of data-parallel training; the
+    model's BatchNorm statistics then span its ranks, loss_fn must give
+    this rank's share of each metric (models/losses.masked_mean with the
+    same group), the gradients are summed over the ranks before Adam, and
+    the returned metrics are the global values."""
+    set_batch_norm_group(model, group)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch: dict, generator=None) -> dict:
         model.train()
@@ -95,36 +144,69 @@ def make_train_fns(model: torch.nn.Module, apply_fn: Callable,
             metrics = loss_fn(apply_fn(batch, generator), batch)
             optimizer.zero_grad(set_to_none=True)
             metrics["loss"].backward()
+            if group is not None:
+                all_reduce_grads(params, group)
             optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return global_metrics({k: v.detach() for k, v in metrics.items()},
+                              group)
 
     @torch.no_grad()
     def eval_step(batch: dict) -> dict:
         model.eval()
         with full_f32():
-            return loss_fn(apply_fn(batch, None), batch)
+            return global_metrics(loss_fn(apply_fn(batch, None), batch),
+                                  group)
 
     return train_step, eval_step
 
 
-def check_num_devices(num_devices) -> None:
-    if num_devices not in (-1, 1):
-        raise ValueError(
-            f"trainer.num_devices={num_devices}: the port trains on one "
-            "device (-1 or 1); data parallelism over several is not "
-            "ported yet")
+def resolve_num_devices(num_devices, device="cuda") -> int:
+    """trainer.num_devices -> the number of ranks: -1 is every card on
+    a bare "cuda", and one process on the CPU or on one named card
+    ("cuda:i"); a count must be at least 1 and, on cuda, at most the
+    cards present, and several ranks need a bare "cuda" (each takes its
+    own card). A CUDA device without a card raises
+    (core.device.resolve_device)."""
+    dev = resolve_device(device)
+    one_card = dev.type == "cuda" and dev.index is not None
+    if num_devices is None or num_devices == -1:
+        if dev.type == "cpu" or one_card:
+            return 1
+        return max(1, torch.cuda.device_count())
+    if num_devices < 1:
+        raise ValueError(f"trainer.num_devices={num_devices}: expected -1 "
+                         "(every card) or a count of at least 1")
+    if one_card and num_devices > 1:
+        raise ValueError(f"trainer.num_devices={num_devices}: "
+                         f"trainer.device={device} names one card; several "
+                         "ranks take trainer.device=cuda, a card each")
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        if num_devices > cards:
+            raise ValueError(f"trainer.num_devices={num_devices}: {cards} "
+                             "CUDA device(s) present")
+    return int(num_devices)
 
 
-def batch_to_device(batch: dict, device) -> dict:
-    """A loader batch (numpy arrays) -> tensors on `device`, with a
-    `_valid_mask` of ones [B] (one device: no padded rows)."""
-    out = {k: to_device(v, device) for k, v in batch.items()}
-    out["_valid_mask"] = torch.ones(len(batch["x"]), device=device)
-    return out
+def batch_to_device(batch: dict, device, world_size: int = 1,
+                    rank: int = 0) -> dict:
+    """A loader batch (numpy arrays) -> this rank's rows as tensors on
+    `device`: the batch padded to a multiple of world_size by repeating
+    row 0 (mesh.pad_batch_to), then rank's contiguous share of the rows,
+    with `_valid_mask` [rows] 1 on the real rows and 0 on the padded
+    ones (the JAX trainer's _prep)."""
+    b = len(batch["x"])
+    target = -(-b // world_size) * world_size
+    padded, _ = pad_batch_to(batch, target)
+    mask = np.zeros(target, np.float32)
+    mask[:b] = 1.0
+    mine = shard_rows(dict(padded, _valid_mask=mask), world_size, rank)
+    return {k: to_device(v, device) for k, v in mine.items()}
 
 
 class Trainer:
-    """Explicit epoch loop with val-loss checkpoint selection."""
+    """Explicit epoch loop with val-loss checkpoint selection, on one rank
+    of a process group when one exists (harness/training.run_ranks)."""
 
     def __init__(self, max_epochs: int, run_dir, checkpoint_top_k: int = 20,
                  num_devices: int = -1,
@@ -132,13 +214,41 @@ class Trainer:
                  limit_val_batches: Optional[int] = None,
                  seed: int = 0, profile_epochs: int = 0,
                  logger_cfg: Optional[dict] = None, device="cuda"):
-        check_num_devices(num_devices)
         self.device = resolve_device(device)
+        if dist.is_initialized():
+            self.group = dist.group.WORLD
+            self.world_size = dist.get_world_size()
+            self.rank = dist.get_rank()
+            if self.device.type == "cuda":
+                # the rank's own card, set by init_distributed
+                own = torch.device("cuda", torch.cuda.current_device())
+                if self.device.index not in (None, own.index):
+                    raise ValueError(
+                        f"trainer.device={device}: rank {self.rank} of "
+                        f"{self.world_size} runs on {own} (give "
+                        "trainer.device=cuda)")
+                self.device = own
+            if num_devices not in (-1, None, self.world_size):
+                raise ValueError(
+                    f"trainer.num_devices={num_devices}: the process group "
+                    f"has {self.world_size} ranks")
+        elif resolve_num_devices(num_devices, device) > 1:
+            raise ValueError(
+                f"trainer.num_devices={num_devices}: several ranks need a "
+                "process group (start them with harness.training.run_ranks "
+                "or torchrun)")
+        else:
+            self.group, self.world_size, self.rank = None, 1, 0
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
         self.max_epochs = max_epochs
         self.run_dir = run_dir
-        self.ckpt = TopKCheckpointManager(
+        self.ckpt = (TopKCheckpointManager(
             f"{run_dir}/checkpoints", k=checkpoint_top_k)
-        self.logger = make_logger(run_dir, logger_cfg)
+            if self.rank == 0 else None)
+        self.logger = (make_logger(run_dir, logger_cfg) if self.rank == 0
+                       else NullLogger())
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         self.seed = seed
@@ -156,6 +266,11 @@ class Trainer:
         prof.stop()
         prof.export_chrome_trace(f"{self.run_dir}/torch_trace.json")
 
+    def _rows(self, batch: dict) -> dict:
+        """This rank's rows of a global loader batch, on its device."""
+        return batch_to_device(batch, self.device, self.world_size,
+                               self.rank)
+
     def fit(self, model, optimizer, train_step, eval_step, train_loader,
             val_loader, hparams: dict, epoch_vis_fn=None,
             start_epoch: int = 0, global_step: int = 0) -> dict:
@@ -163,12 +278,14 @@ class Trainer:
         passes its checkpoint's epoch + 1 and global_step).
         epoch_vis_fn(epoch, global_step): the per-epoch image hook
         (harness/vis_hooks.py). Returns the logger's summary."""
-        # dropout's random source, on the training device
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        # dropout's random source, on the training device, one a rank
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.seed + DROPOUT_SEED_STRIDE * self.rank)
         prof = None
         loader_wait = []
         for epoch in range(start_epoch, self.max_epochs):
-            if self.profile_epochs and epoch == start_epoch:
+            if self.profile_epochs and epoch == start_epoch and (
+                    self.rank == 0):
                 prof = self._profiler()
             if prof is not None and epoch == start_epoch + self.profile_epochs:
                 self._stop_profiler(prof)
@@ -184,7 +301,7 @@ class Trainer:
                 wait += time.perf_counter() - tw
                 if batch is None:
                     break
-                metrics = train_step(batch_to_device(batch, self.device), gen)
+                metrics = train_step(self._rows(batch), gen)
                 flusher.add("train_", metrics, global_step)
                 global_step += 1
                 n_train += 1
@@ -198,9 +315,8 @@ class Trainer:
                 if (self.limit_val_batches is not None
                         and len(val_metrics) >= self.limit_val_batches):
                     break
-                prepped = batch_to_device(batch, self.device)
-                val_metrics.append(eval_step(prepped))
-                val_weights.append(len(prepped["_valid_mask"]))
+                val_metrics.append(eval_step(self._rows(batch)))
+                val_weights.append(len(batch["x"]))
             val_rows = metrics_to_host(val_metrics)
             for row in val_rows:
                 self.logger.log({f"val_{k}": v for k, v in row.items()},
@@ -211,17 +327,22 @@ class Trainer:
                                          weights=val_weights))
                         if val_rows else float("nan"))
 
-            if epoch_vis_fn is not None:
-                epoch_vis_fn(epoch, global_step)
-            self.ckpt.save(epoch, val_loss, training_checkpoint(
-                model, hparams, optimizer, epoch, global_step))
+            if self.rank == 0:
+                if epoch_vis_fn is not None:
+                    epoch_vis_fn(epoch, global_step)
+                self.ckpt.save(epoch, val_loss, training_checkpoint(
+                    model, hparams, optimizer, epoch, global_step))
+            if self.group is not None:
+                # the other ranks go on once the epoch's checkpoint is down
+                dist.barrier(group=self.group)
             self.logger.log({"epoch": epoch, "val_loss": val_loss,
                              "epoch_sec": time.time() - t0},
                             step=global_step)
         if prof is not None:
             self._stop_profiler(prof)
         summary = self.logger.summary
-        summary["best_checkpoint"] = str(self.ckpt.best_path)
+        summary["best_checkpoint"] = str(
+            None if self.ckpt is None else self.ckpt.best_path)
         summary["global_step"] = global_step
         summary["loader_wait_sec"] = loader_wait
         self.logger.close()
@@ -252,7 +373,7 @@ def run_training(cfg: dict, trainer: Trainer, model, learning_rate: float,
     batch after each epoch. Returns the run's summary."""
     optimizer = make_adam(model, learning_rate)
     train_step, eval_step = make_train_fns(model, apply_fn, loss_fn,
-                                           optimizer)
+                                           optimizer, trainer.group)
     start_epoch, step = 0, 0
     resume = cfg["trainer"].get("resume_from_checkpoint")
     if resume:
@@ -262,7 +383,7 @@ def run_training(cfg: dict, trainer: Trainer, model, learning_rate: float,
     train_loader.seed = trainer.seed
     val_loader = datamodule.val_dataloader()
     epoch_vis_fn = None
-    if vis_fn is not None and len(val_loader) > 0:
+    if vis_fn is not None and len(val_loader) > 0 and trainer.rank == 0:
         vis_batch = batch_to_device(next(iter(val_loader)), trainer.device)
         del vis_batch["_valid_mask"]
 
@@ -275,3 +396,41 @@ def run_training(cfg: dict, trainer: Trainer, model, learning_rate: float,
                        train_loader, val_loader, hparams,
                        epoch_vis_fn=epoch_vis_fn, start_epoch=start_epoch,
                        global_step=step)
+
+
+def _shared_run_dir(run_dir) -> str:
+    """Rank 0's run directory, on every rank of the process group."""
+    box = [str(config_mod.make_run_dir(run_dir=run_dir))
+           if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def run_ranks(train_fn: Callable, cfg: dict, run_dir=None):
+    """The train CLIs' entry: train_fn(cfg, run_dir) on every rank of the
+    run, which returns the run directory.
+
+    - Under torchrun (WORLD_SIZE in the environment) this process joins
+      that group (init_distributed, nccl on cards) and rank 0's run
+      directory is every rank's.
+    - Otherwise, when trainer.num_devices resolves to n > 1, n ranks are
+      spawned on localhost (launch_ranks: gloo on trainer.device=cpu, nccl
+      on cards, one card a rank); a rank that raises stops the others and
+      the exception is raised here.
+    - Otherwise train_fn runs in this process."""
+    t = cfg["trainer"]
+    device = t.get("device", "cuda")
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        init_distributed(device=device)
+        try:
+            return train_fn(cfg, _shared_run_dir(run_dir))
+        finally:
+            dist.destroy_process_group()
+    if dist.is_initialized():
+        return train_fn(cfg, run_dir)
+    n = resolve_num_devices(t.get("num_devices", -1), device)
+    if n == 1:
+        return train_fn(cfg, run_dir)
+    run_dir = config_mod.make_run_dir(run_dir=run_dir)
+    launch_ranks(train_fn, n, args=(cfg, str(run_dir)), device=device)
+    return run_dir

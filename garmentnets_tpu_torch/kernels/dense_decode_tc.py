@@ -159,10 +159,12 @@ def line_window(S: int, wc: int, rows: int = 128) -> int:
 
 
 def dense_decode_tc_cuda(z: torch.Tensor, packed: PackedDecoder,
-                         volume_size: int) -> torch.Tensor:
+                         volume_size: int, d_range=None) -> torch.Tensor:
     """z: [B, D, H, W, C1] float32 CUDA, the coarse layer-0 pre-activations
-    (fv @ K0 + b0); packed: pack_decoder's output on the same device.
-    Returns the [B, S, S, S] float32 field."""
+    (fv @ K0 + b0); packed: pack_decoder's output on the same device;
+    d_range: (d_begin, d_count), the strip of D planes to decode (None:
+    all S). Returns the [B, d_count, S, S] float32 field, equal bit for
+    bit to that slice of the whole field."""
     _build.require_cuda(z, "dense decode z")
     if z.dim() != 5:
         raise ValueError(f"dense decode: z must be [B,D,H,W,C], got "
@@ -171,6 +173,10 @@ def dense_decode_tc_cuda(z: torch.Tensor, packed: PackedDecoder,
     S = volume_size
     if min(D, H, W) < 2:
         raise ValueError("dense decode: coarse grid dims must be >= 2")
+    d_begin, d_count = (0, S) if d_range is None else map(int, d_range)
+    if d_begin < 0 or d_count < 1 or d_begin + d_count > S:
+        raise ValueError(f"dense decode: D range {d_range} outside "
+                         f"0..{S}")
     if C1 != packed.c1:
         raise ValueError(f"dense decode: z has {C1} channels, the layers "
                          f"{packed.c1}")
@@ -189,13 +195,14 @@ def dense_decode_tc_cuda(z: torch.Tensor, packed: PackedDecoder,
     dev = z.device
     (lo_d, w_d), (lo_h, w_h), (lo_w, w_w) = (
         axis_plan(S, D, dev), axis_plan(S, H, dev), axis_plan(S, W, dev))
-    out = torch.empty((B, S, S, S), dtype=torch.float32, device=dev)
+    out = torch.empty((B, d_count, S, S), dtype=torch.float32, device=dev)
 
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _build.cuda_fn("dense_decode_tc", "dense_decode_tc_launch", [
-        P, I, I, I, I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P, P])
+        P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+        P, P])
     with torch.cuda.device(dev):
-        err = fn(z.data_ptr(), B, D, H, W, C1, S,
+        err = fn(z.data_ptr(), B, D, H, W, C1, S, d_begin, d_count,
                  lo_d.data_ptr(), w_d.data_ptr(), lo_h.data_ptr(),
                  w_h.data_ptr(), lo_w.data_ptr(), w_w.data_ptr(),
                  packed.aff0.data_ptr(), packed.wts.data_ptr(),

@@ -227,25 +227,28 @@ class ConvImplicitWNFPipeline(nn.Module):
         return out
 
 
-def pipeline_loss(cfg: PipelineConfig, result: dict, batch: dict) -> dict:
+def pipeline_loss(cfg: PipelineConfig, result: dict, batch: dict,
+                  group=None) -> dict:
     """Weighted volume + surface (+ mc-surface BCE) loss (reference infer
     :405-444): l2 or smooth_l1, or BCE on logits for the volume with
     volume_classification. Rows with batch['_valid_mask'] == 0 carry no
-    weight."""
+    weight. group: the process group whose ranks share the batch (each
+    metric is then this rank's share, models/losses.masked_mean)."""
     mask = batch.get("_valid_mask")
 
     def criterion(pred, gt):
         if cfg.loss_type == "l2":
-            return masked_mean((pred - gt) ** 2, mask)
+            return masked_mean((pred - gt) ** 2, mask, group)
         if cfg.loss_type == "smooth_l1":
             d = (pred - gt).abs()
             return masked_mean(torch.where(d < 1.0, 0.5 * d * d, d - 0.5),
-                               mask)
+                               mask, group)
         raise ValueError(f"invalid loss_type {cfg.loss_type!r}")
 
     def bce_logits(logits, target):
         return masked_mean(torch.clamp(logits, min=0) - logits * target
-                           + torch.log1p(torch.exp(-logits.abs())), mask)
+                           + torch.log1p(torch.exp(-logits.abs())), mask,
+                           group)
 
     pred_vol = result["pred_volume_value"]
     gt_vol = batch["gt_volume_value"]

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from garmentnets_tpu_torch.models.losses import masked_mean
+from garmentnets_tpu_torch.models.losses import global_value, masked_mean
 from garmentnets_tpu_torch.models.pointnet2 import (
     FPModule, GlobalSAModule, SAModule)
 from garmentnets_tpu_torch.ops.virtual_grid import VirtualGrid
@@ -150,21 +150,23 @@ def mirror_nocs_points_by_axis(points: torch.Tensor,
     return torch.stack(cols, dim=-1)
 
 
-def _bin_cross_entropy(cfg, logits, gt_points, mask=None):
+def _bin_cross_entropy(cfg, logits, gt_points, mask=None, group=None):
     """Per-axis CE over the NOCS bins: logits [..., bins*3], gt [..., 3] in
     [0, 1]."""
     lb = logits.reshape(*logits.shape[:-1], cfg.nocs_bins, 3)
     gt_idx = cfg.virtual_grid().get_points_grid_idxs(gt_points)   # [...,3]
     logp = torch.log_softmax(lb, dim=-2)
     picked = torch.gather(logp, -2, gt_idx[..., None, :])
-    return -masked_mean(picked, mask)
+    return -masked_mean(picked, mask, group)
 
 
 def get_metrics_bin(cfg: PointNet2NOCSConfig, result: dict, batch: dict,
-                    mirror_axis: Optional[int] = None) -> tuple:
+                    mirror_axis: Optional[int] = None, group=None) -> tuple:
     """CE binning loss and error metrics (reference get_metrics_bin_simple
     :288; with `mirror_axis`, against the mirrored ground truth as in
-    get_metrics_bin_symmetry_helper :341) -> (metrics, nocs_data)."""
+    get_metrics_bin_symmetry_helper :341) -> (metrics, nocs_data).
+    group: the process group whose ranks share the batch (each metric is
+    then this rank's share, see models/losses.masked_mean)."""
     gt_nocs = batch["y"]
     gt_grip = batch["nocs_grip_point"]                              # [B,3]
     mask = batch.get("_valid_mask")
@@ -173,9 +175,9 @@ def get_metrics_bin(cfg: PointNet2NOCSConfig, result: dict, batch: dict,
         gt_grip = mirror_nocs_points_by_axis(gt_grip, mirror_axis)
 
     nocs_loss = _bin_cross_entropy(
-        cfg, result["per_point_logits"], gt_nocs, mask)
+        cfg, result["per_point_logits"], gt_nocs, mask, group)
     grip_loss = _bin_cross_entropy(
-        cfg, result["global_logits"], gt_grip, mask)
+        cfg, result["global_logits"], gt_grip, mask, group)
     pred_nocs, confidence = logits_to_nocs_bins(
         cfg, result["per_point_logits"])
     pred_grip, _ = logits_to_nocs_bins(cfg, result["global_logits"])
@@ -187,9 +189,9 @@ def get_metrics_bin(cfg: PointNet2NOCSConfig, result: dict, batch: dict,
         "nocs_loss": nocs_loss,
         "grip_point_loss": grip_loss,
         "nocs_err_dist": masked_mean(
-            torch.linalg.norm(pred_nocs - gt_nocs, dim=-1), mask),
+            torch.linalg.norm(pred_nocs - gt_nocs, dim=-1), mask, group),
         "grip_point_err_dist": masked_mean(
-            torch.linalg.norm(pred_grip - gt_grip, dim=-1), mask),
+            torch.linalg.norm(pred_grip - gt_grip, dim=-1), mask, group),
     }
     nocs_data = {
         "x": result["per_point_features"],
@@ -201,32 +203,35 @@ def get_metrics_bin(cfg: PointNet2NOCSConfig, result: dict, batch: dict,
 
 
 def get_metrics_regression(cfg: PointNet2NOCSConfig, result: dict,
-                           batch: dict) -> tuple:
+                           batch: dict, group=None) -> tuple:
     """MSE regression variant (reference get_metrics_regression :257);
     with a symmetry axis, the smaller of the plain MSE and the MSE against
-    the x-mirrored ground truth (MirrorMSELoss mirrors x)."""
+    the x-mirrored ground truth (MirrorMSELoss mirrors x), the two compared
+    over the whole batch under a process group."""
     pred_nocs = result["per_point_logits"]
     pred_grip = result["global_logits"]
     gt_nocs, gt_grip = batch["y"], batch["nocs_grip_point"]
     mask = batch.get("_valid_mask")
 
     def criterion(pred, gt):
-        mse = masked_mean((pred - gt) ** 2, mask)
+        mse = masked_mean((pred - gt) ** 2, mask, group)
         if cfg.symmetry_axis is None:
             return mse
         gt_m = mirror_nocs_points_by_axis(gt, 0)
-        return torch.minimum(mse, masked_mean((pred - gt_m) ** 2, mask))
+        mse_m = masked_mean((pred - gt_m) ** 2, mask, group)
+        return torch.where(global_value(mse, group)
+                           <= global_value(mse_m, group), mse, mse_m)
 
     nocs_loss = criterion(pred_nocs, gt_nocs)
-    grip_loss = masked_mean((pred_grip - gt_grip) ** 2, mask)
+    grip_loss = masked_mean((pred_grip - gt_grip) ** 2, mask, group)
     loss = (cfg.nocs_loss_weight * nocs_loss
             + cfg.grip_point_loss_weight * grip_loss)
     metrics = {
         "loss": loss, "nocs_loss": nocs_loss, "grip_point_loss": grip_loss,
         "nocs_err_dist": masked_mean(
-            torch.linalg.norm(pred_nocs - gt_nocs, dim=-1), mask),
+            torch.linalg.norm(pred_nocs - gt_nocs, dim=-1), mask, group),
         "grip_point_err_dist": masked_mean(
-            torch.linalg.norm(pred_grip - gt_grip, dim=-1), mask),
+            torch.linalg.norm(pred_grip - gt_grip, dim=-1), mask, group),
     }
     nocs_data = {
         "x": result["per_point_features"], "pos": pred_nocs,
@@ -235,21 +240,25 @@ def get_metrics_regression(cfg: PointNet2NOCSConfig, result: dict,
     return metrics, nocs_data
 
 
-def get_metrics(cfg: PointNet2NOCSConfig, result: dict, batch: dict):
+def get_metrics(cfg: PointNet2NOCSConfig, result: dict, batch: dict,
+                group=None):
     """Regression, bins, or bins with symmetry: the smaller of the plain
     and the mirrored CE loss, with the metrics and NOCS of the branch it
-    came from (reference infer :421-433)."""
+    came from (reference infer :421-433). group: the process group whose
+    ranks share the batch; the two losses are then compared over the
+    whole batch, so every rank takes the same branch and the ranks'
+    losses sum to the global one."""
     if cfg.nocs_bins is None:
-        return get_metrics_regression(cfg, result, batch)
+        return get_metrics_regression(cfg, result, batch, group)
     if cfg.symmetry_axis is None:
-        return get_metrics_bin(cfg, result, batch)
-    normal_m, normal_d = get_metrics_bin(cfg, result, batch, None)
+        return get_metrics_bin(cfg, result, batch, None, group)
+    normal_m, normal_d = get_metrics_bin(cfg, result, batch, None, group)
     mirror_m, mirror_d = get_metrics_bin(
-        cfg, result, batch, cfg.symmetry_axis)
-    take_normal = normal_m["loss"] <= mirror_m["loss"]
+        cfg, result, batch, cfg.symmetry_axis, group)
+    take_normal = (global_value(normal_m["loss"], group)
+                   <= global_value(mirror_m["loss"], group))
     metrics = {k: torch.where(take_normal, normal_m[k], mirror_m[k])
                for k in normal_m}
-    metrics["loss"] = torch.minimum(normal_m["loss"], mirror_m["loss"])
     nocs_data = {k: torch.where(take_normal, normal_d[k], mirror_d[k])
                  for k in normal_d}
     return metrics, nocs_data

@@ -23,6 +23,21 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from garmentnets_tpu_torch.core.device import full_f32
+from garmentnets_tpu_torch.models.mlp import train_batch_norm
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """nn.BatchNorm3d over [B, C, D, H, W]; in training mode under a process
+    group (models/mlp.set_batch_norm_group) it takes the statistics of the
+    ranks' batches together, with models/mlp.train_batch_norm."""
+
+    group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.group is None:
+            return super().forward(x)
+        return train_batch_norm(self, x.movedim(1, -1), None,
+                                self.group).movedim(-1, 1)
 
 
 def number_of_features_per_level(init: int, num_levels: int):
@@ -54,7 +69,7 @@ class SingleConv(nn.Sequential):
                                                           eps=1e-5))
             elif ch == "b":
                 n = in_channels if i < conv_pos else out_channels
-                self.add_module("batchnorm", nn.BatchNorm3d(n))
+                self.add_module("batchnorm", BatchNorm3d(n))
             elif ch == "r":
                 self.add_module("ReLU", nn.ReLU())
             elif ch == "l":

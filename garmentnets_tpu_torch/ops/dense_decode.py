@@ -21,11 +21,15 @@ The trilinear upsample and the scalar head stay in f32 at every tier.
   and the kernel's reference.
 - `dense_decode`: on a CUDA tensor, the tensor-core kernel at the tier
   (kernels/dense_decode_tc.py, csrc/dense_decode_tc.cu); on a CPU tensor,
-  the plain version of the tier.
+  the plain version of the tier. Both take a D range (`d_range`), a
+  strip of planes equal bit for bit to that slice of the whole field.
+- `dense_decode_sharded`: the strips of one volume over the devices of a
+  mesh's "space" axis.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -166,26 +170,37 @@ def coarse_first_layer(feature_volume: torch.Tensor, layers) -> torch.Tensor:
     return torch.einsum("bdhwc,co->bdhwo", feature_volume, k0) + b0
 
 
-def dense_decode_plain(feature_volume: torch.Tensor, layers,
-                       volume_size: int, precision: str = "highest",
-                       kernel_products: bool = False) -> torch.Tensor:
-    """Separable slab decode. feature_volume [B, D, H, W, C]; layers:
-    (K, b, g, s) per layer (numpy or torch); precision: the tier of the
-    hidden layers' products; kernel_products: 'highest' as the card's
-    kernel computes it (bf16x6) instead of f32, for checking that kernel.
-    Returns [B, S, S, S] for a scalar head, else [B, S, S, S, O]."""
-    precision = check_precision(precision)
-    dev = feature_volume.device
-    layers = _as_torch_layers(layers, dev)
-    B, D, H, W, C = feature_volume.shape
+def _strip(volume_size: int, d_range) -> tuple:
+    """(d_begin, d_count) of a D range, all S planes for None."""
     S = volume_size
-    slab = next(s for s in (8, 4, 2, 1) if S % s == 0)  # D slices at once
-    z = coarse_first_layer(feature_volume, layers)
+    d_begin, d_count = (0, S) if d_range is None else map(int, d_range)
+    if d_begin < 0 or d_count < 1 or d_begin + d_count > S:
+        raise ValueError(f"dense decode: D range {d_range} outside 0..{S}")
+    return d_begin, d_count
+
+
+def decode_plain_from_z(z: torch.Tensor, layers, volume_size: int,
+                        precision: str = "highest",
+                        kernel_products: bool = False,
+                        d_range=None) -> torch.Tensor:
+    """The plain decode from layer 0's coarse pre-activations
+    z = coarse_first_layer(fv, layers), over the D planes of `d_range`
+    (d_begin, d_count) or all of them. Each plane's arithmetic does not
+    depend on the range, so a strip equals that slice of the whole
+    decode bit for bit."""
+    precision = check_precision(precision)
+    dev = z.device
+    layers = _as_torch_layers(layers, dev)
+    B, D, H, W, _ = z.shape
+    S = volume_size
+    d_begin, d_count = _strip(S, d_range)
+    # D planes decoded at once
+    slab = next(s for s in (8, 4, 2, 1) if d_count % s == 0)
     g0, s0 = layers[0][2], layers[0][3]
     (lo_d, w_d), plan_h, plan_w = (
         axis_plan(S, D, dev), axis_plan(S, H, dev), axis_plan(S, W, dev))
     out = []
-    for d0 in range(0, S, slab):
+    for d0 in range(d_begin, d_begin + d_count, slab):
         # D, then H, then W, the kernels' order of the trilinear taps
         h = lerp_axis(z, 1, lo_d[d0:d0 + slab], w_d[d0:d0 + slab])
         h = lerp_axis(h, 2, *plan_h)
@@ -200,22 +215,84 @@ def dense_decode_plain(feature_volume: torch.Tensor, layers,
     return out[..., 0] if out.shape[-1] == 1 else out
 
 
+def dense_decode_plain(feature_volume: torch.Tensor, layers,
+                       volume_size: int, precision: str = "highest",
+                       kernel_products: bool = False,
+                       d_range=None) -> torch.Tensor:
+    """Separable slab decode. feature_volume [B, D, H, W, C]; layers:
+    (K, b, g, s) per layer (numpy or torch); precision: the tier of the
+    hidden layers' products; kernel_products: 'highest' as the card's
+    kernel computes it (bf16x6) instead of f32, for checking that kernel;
+    d_range: (d_begin, d_count), the strip of D planes to decode (None:
+    all). Returns [B, d_count, S, S] for a scalar head, else
+    [B, d_count, S, S, O]."""
+    layers = _as_torch_layers(layers, feature_volume.device)
+    return decode_plain_from_z(coarse_first_layer(feature_volume, layers),
+                               layers, volume_size, precision,
+                               kernel_products, d_range)
+
+
+def _decode_z(z: torch.Tensor, layers, volume_size: int, precision: str,
+              packed, d_range) -> torch.Tensor:
+    """A strip of the field from z at a tier: the tensor-core kernel for a
+    CUDA tensor (scalar heads only), the plain version for a CPU one."""
+    if not z.is_cuda:
+        return decode_plain_from_z(z, layers, volume_size, precision,
+                                   d_range=d_range)
+    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
+        dense_decode_tc_cuda, pack_decoder)
+    if packed is None:
+        packed = pack_decoder(_as_torch_layers(layers, z.device), precision)
+    return dense_decode_tc_cuda(z, packed, volume_size, d_range)
+
+
 def dense_decode(feature_volume: torch.Tensor, layers,
                  volume_size: int, precision: str = "highest",
-                 packed=None) -> torch.Tensor:
+                 packed=None, d_range=None) -> torch.Tensor:
     """[B, D, H, W, C] -> [B, S, S, S] at a precision tier: for a CUDA
     tensor the tensor-core kernel of the tier, scalar heads only; for a CPU
     tensor the plain slab version of the tier. `packed`: the kernel's
     weights from kernels/dense_decode_tc.pack_decoder for these layers and
-    this tier (packed on the fly when None)."""
+    this tier (packed on the fly when None). d_range: (d_begin, d_count),
+    only those D planes ([B, d_count, S, S])."""
     precision = check_precision(precision)
-    if not feature_volume.is_cuda:
-        return dense_decode_plain(feature_volume, layers, volume_size,
-                                  precision)
     layers = _as_torch_layers(layers, feature_volume.device)
     z = coarse_first_layer(feature_volume, layers).contiguous()
-    from garmentnets_tpu_torch.kernels.dense_decode_tc import (
-        dense_decode_tc_cuda, pack_decoder)
-    if packed is None:
-        packed = pack_decoder(layers, precision)
-    return dense_decode_tc_cuda(z, packed, volume_size)
+    return _decode_z(z, layers, volume_size, precision, packed, d_range)
+
+
+def dense_decode_sharded(feature_volume: torch.Tensor, layers,
+                         volume_size: int, precision: str, devices,
+                         packed_by_device: Optional[dict] = None
+                         ) -> torch.Tensor:
+    """The dense decode with its D planes split over `devices`, the
+    devices of one data shard's row of a mesh's "space" axis (the
+    counterpart of the JAX decode's shard_map over that axis). Layer 0's
+    coarse pre-activations z (B x 32^3 x C1) are computed once on the
+    feature volume's device and copied to each space device without
+    blocking the host; device j decodes planes [j S/n, (j+1) S/n) (one
+    kernel launch on a card) and the strips come back to the feature
+    volume's device, concatenated along D. Equal bit for bit to
+    dense_decode on one device. packed_by_device: each card's
+    pack_decoder output (packed on the fly where missing)."""
+    precision = check_precision(precision)
+    devices = [torch.device(d) for d in devices]
+    n, S = len(devices), volume_size
+    if S % n:
+        raise ValueError(f"prediction.volume_size={S} does not divide "
+                         f"over the {n}-way 'space' axis")
+    home = feature_volume.device
+    per = S // n
+    z = coarse_first_layer(
+        feature_volume, _as_torch_layers(layers, home)).contiguous()
+    strips = []
+    for j, dev in enumerate(devices):
+        zj = z if dev == home else z.to(dev, non_blocking=True)
+        packed = (packed_by_device or {}).get(dev)
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            strip = _decode_z(zj, layers, S, precision, packed,
+                              (j * per, per))
+        strips.append(strip if dev == home
+                      else strip.to(home, non_blocking=True))
+    return torch.cat(strips, dim=1)

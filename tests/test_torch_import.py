@@ -31,8 +31,8 @@ assert set(EXPECTED) <= set(mods), sorted(set(EXPECTED) - set(mods))
 print(len(mods))
 """
 
-# modules of the predict, serve, predict-CLI, eval, training and
-# large-volume slices that must be among them
+# modules of the predict, serve, predict-CLI, eval, training,
+# large-volume and multi-device slices that must be among them
 EXPECTED = [
     "garmentnets_tpu_torch." + m for m in (
         "harness.predict_engine", "harness.serve", "harness.predict",
@@ -47,7 +47,7 @@ EXPECTED = [
         "data.synthetic", "utils.cache", "models.losses",
         "harness.training", "harness.train_pointnet2",
         "harness.train_pipeline", "harness.vis_hooks", "ops.normals",
-        "ops.isosurface", "models.unet3d")]
+        "ops.isosurface", "models.unet3d", "parallel.mesh")]
 
 
 def _env():

@@ -6,7 +6,8 @@ CLI on the stage-2 checkpoint as it is, and the JAX predict CLI on that
 checkpoint converted by tools/convert_checkpoint.py (the same outputs, at
 tests/test_torch_predict.py's tolerances); a stage-1 checkpoint that
 tools/export_checkpoint.py wrote from a JAX-trained one starts the port's
-stage 2; one device only (trainer.num_devices=2 is refused)."""
+stage 2; a trainer.num_devices that no run can take is refused (several
+ranks: tests/test_torch_ddp.py)."""
 import json
 import pathlib
 import re
@@ -291,8 +292,10 @@ def test_pipeline_hparams_equal_jax():
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("num_devices", 2, ValueError), ("num_devices", 8, ValueError)])
+    ("num_devices", 0, ValueError), ("num_devices", -3, ValueError)])
 def test_more_than_one_device_is_refused(d, key, value, error):
+    """A device count that no run can take is refused, naming the key
+    (two ranks on the CPU run: tests/test_torch_ddp.py)."""
     with pytest.raises(error, match=f"trainer.{key}={value}"):
         train_pointnet2.main(_s1_cfg(d, **{key: value}),
                              run_dir=str(d / f"refused_{value}"))
