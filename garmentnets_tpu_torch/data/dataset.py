@@ -363,7 +363,13 @@ class Loader:
     datasets/conv_implicit_wnf_dataset.py:539-544 — stage-2 sampling does
     heavy zarr/zlib/numpy work that releases the GIL). Batch contents and
     order are identical for any worker count.
+
+    `process_sharded` is True on a loader that yields only this rank's
+    samples (ConvImplicitWNFDataModule with shard_by_process under several
+    ranks): the Trainer then takes each of its batches whole.
     """
+
+    process_sharded = False
 
     def __init__(self, dataset, idxs, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False, prefetch: int = 2,
@@ -520,32 +526,51 @@ class ConvImplicitWNFDataModule:
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
 
+    @staticmethod
+    def _process_group() -> tuple:
+        """(ranks, this rank) of torch.distributed's process group, or
+        (1, 0) without one (the JAX package's process_count/index)."""
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size(), dist.get_rank()
+        return 1, 0
+
+    def process_sharded(self) -> bool:
+        """Whether each rank's loaders yield only that rank's samples:
+        shard_by_process=True in the datamodule config under a process
+        group of several ranks."""
+        return (bool(self.kwargs.get("shard_by_process", False))
+                and self._process_group()[0] > 1)
+
     def _process_shard(self, idxs, process_count=None, process_index=None):
         """Disjoint per-process index shard for data parallelism (SURVEY.md
-        §2.5 'per-host data loading'). Enabled by shard_by_process=True in
-        the datamodule config; every process then loads only its own 1/P
-        of the samples, P and the rank coming from torch.distributed when
-        its process group is initialized, else (1, 0). The tail remainder
-        is dropped so all processes run the same number of steps
-        (collectives would deadlock otherwise)."""
+        §2.5 'per-host data loading'). Two modes:
+        - in force (shard_by_process=True under a process group of P > 1
+          ranks, P and the rank from torch.distributed): every rank loads
+          only its own 1/P of the samples, and the Trainer takes each
+          rank's loader batch whole as its share, so a global batch is
+          P x batch_size rows (harness/training.own_rows_to_device). The
+          tail remainder is dropped so all ranks run the same number of
+          steps (collectives would deadlock otherwise).
+        - otherwise (the flag off, or one process, where JAX's
+          process_count() is 1): the indices as they are; every rank reads
+          the same global batches and keeps its slice of each
+          (harness/training.batch_to_device)."""
         if not self.kwargs.get("shard_by_process", False):
             return idxs
         if process_count is None:
-            import torch.distributed as dist
-            if dist.is_available() and dist.is_initialized():
-                process_count = dist.get_world_size()
-                process_index = dist.get_rank()
-            else:
-                process_count, process_index = 1, 0
+            process_count, process_index = self._process_group()
         if process_count <= 1:
             return idxs
         n = (len(idxs) // process_count) * process_count
         return idxs[process_index:n:process_count]
 
     def _loader(self, dataset, idxs, **kw) -> Loader:
-        return Loader(dataset, self._process_shard(idxs),
-                      self.kwargs["batch_size"],
-                      num_workers=self.kwargs.get("num_workers", 0), **kw)
+        loader = Loader(dataset, self._process_shard(idxs),
+                        self.kwargs["batch_size"],
+                        num_workers=self.kwargs.get("num_workers", 0), **kw)
+        loader.process_sharded = self.process_sharded()
+        return loader
 
     def train_dataloader(self) -> Loader:
         return self._loader(self.train_dataset, self.train_idxs,

@@ -184,8 +184,8 @@ def generate_dataset(path, num_instances: int = 3, grips_per_instance: int = 2,
                      pts_per_view: int = 2000, num_views: int = 4,
                      seed: int = 0,
                      include_task_space: bool = True,
-                     garment_types: tuple = ("SynthCloth",)
-                     ) -> zarrlite.Group:
+                     garment_types: tuple = ("SynthCloth",),
+                     device="cuda") -> zarrlite.Group:
     """Write a synthetic dataset zarr; returns the root group.
 
     include_task_space: also emit sim_nocs_winding_number_field (one
@@ -193,7 +193,10 @@ def generate_dataset(path, num_instances: int = 3, grips_per_instance: int = 2,
     for large volumes when only the canonical-space groups are needed.
     garment_types: categories to cycle through per instance (keys of
     GARMENT_MAKERS — the reference trains per CLOTH3D category; pass
-    several for a mixed-category dataset)."""
+    several for a mixed-category dataset). device: where a lattice whose
+    winding number takes ops/geometry's device path (queries x faces above
+    WN_DEVICE_FROM, e.g. 128^3 against ~2k faces) is computed: the card
+    unless the caller names the CPU; smaller lattices stay in host numpy."""
     root = zarrlite.open(path, "w")
     samples = root.require_group("samples")
     rng = np.random.RandomState(seed)
@@ -207,8 +210,8 @@ def generate_dataset(path, num_instances: int = 3, grips_per_instance: int = 2,
         vg_axes = np.linspace(0, 1, volume_size, dtype=np.float32)
         qx, qy, qz = np.meshgrid(vg_axes, vg_axes, vg_axes, indexing="ij")
         q = np.stack([qx.ravel(), qy.ravel(), qz.ravel()], axis=1)
-        wnf = geometry.winding_number(q, nocs_verts, faces).reshape(
-            (volume_size,) * 3)
+        wnf = geometry.winding_number(
+            q, nocs_verts, faces, device=device).reshape((volume_size,) * 3)
         # GT marching-cube mesh from the WNF (on-surface flag via smoothed
         # gradient magnitude, like the reference's offline generation,
         # common/marching_cubes_util.py:5-35)
@@ -289,8 +292,8 @@ def generate_dataset(path, num_instances: int = 3, grips_per_instance: int = 2,
     q = np.stack([qx.ravel(), qy.ravel(), qz.ravel()], axis=1)
     for g, sim_verts, faces in sim_records:
         sim_wnf = geometry.winding_number(
-            q, normalizer(sim_verts).astype(np.float32), faces).reshape(
-                (volume_size,) * 3)
+            q, normalizer(sim_verts).astype(np.float32), faces,
+            device=device).reshape((volume_size,) * 3)
         sg = g["volume"].require_group("sim_nocs_winding_number_field")
         sg.array(str(volume_size), sim_wnf.astype(np.float32),
                  compressor="blosc")

@@ -13,15 +13,24 @@
 
 Data parallelism (`trainer.num_devices`, the JAX trainer's mesh): one
 process a rank on torch.distributed (`run_ranks`: spawned ranks on
-localhost, or torchrun's). Every rank reads the same global batch, pads
-it to a multiple of the world size by repeating row 0 as the JAX
-trainer's `_prep` does, and keeps its own rows, `_valid_mask` 0 on the
-padded ones. BatchNorm takes its statistics over the whole padded global
-batch and every loss is the rank's share of the global masked mean
-(models/mlp.py, models/losses.py), so after one all-reduce (a sum) of the
-gradients in one flat bucket every rank holds the global batch's
-gradient and runs the same Adam step: the replicas stay equal. Only rank
-0 logs, runs the per-epoch images and writes checkpoints.
+localhost, or torchrun's). Where the rows come from depends on
+`datamodule.shard_by_process` (data/dataset.py `_process_shard`):
+- off (the shipped configs): every rank reads the same global batch, pads
+  it to a multiple of the world size by repeating row 0 as the JAX
+  trainer's `_prep` does, and keeps its own rows, `_valid_mask` 0 on the
+  padded ones (`batch_to_device`);
+- on: every rank's loader yields its own samples and the rank takes its
+  whole batch, so the global batch is world x batch_size rows, in rank
+  order; a batch that ends uneven across ranks (a val or test tail) is
+  padded to the most rows any rank holds, `_valid_mask` 0 on the padding
+  (`own_rows_to_device`).
+One process is the same in both modes. BatchNorm takes its statistics
+over the whole padded global batch and every loss is the rank's share of
+the global masked mean (models/mlp.py, models/losses.py), so after one
+all-reduce (a sum) of the gradients in one flat bucket every rank holds
+the global batch's gradient and runs the same Adam step: the replicas
+stay equal. Only rank 0 logs, runs the per-epoch images and writes
+checkpoints.
 """
 from __future__ import annotations
 
@@ -188,20 +197,49 @@ def resolve_num_devices(num_devices, device="cuda") -> int:
     return int(num_devices)
 
 
+def _masked(batch: dict, rows: int) -> dict:
+    """`batch` padded to `rows` rows by repeating its row 0
+    (mesh.pad_batch_to), with `_valid_mask` [rows] 1 on the real rows and
+    0 on the padded ones (the JAX trainer's _prep)."""
+    padded, b = pad_batch_to(batch, rows)
+    mask = np.zeros(rows, np.float32)
+    mask[:b] = 1.0
+    return dict(padded, _valid_mask=mask)
+
+
 def batch_to_device(batch: dict, device, world_size: int = 1,
                     rank: int = 0) -> dict:
-    """A loader batch (numpy arrays) -> this rank's rows as tensors on
-    `device`: the batch padded to a multiple of world_size by repeating
-    row 0 (mesh.pad_batch_to), then rank's contiguous share of the rows,
-    with `_valid_mask` [rows] 1 on the real rows and 0 on the padded
-    ones (the JAX trainer's _prep)."""
+    """A global loader batch (numpy arrays; every rank reads the same one:
+    shard_by_process off, or one process) -> this rank's rows as tensors
+    on `device`: the batch padded to a multiple of world_size by repeating
+    row 0, then rank's contiguous share of the rows, `_valid_mask` 0 on
+    the padded ones."""
     b = len(batch["x"])
-    target = -(-b // world_size) * world_size
-    padded, _ = pad_batch_to(batch, target)
-    mask = np.zeros(target, np.float32)
-    mask[:b] = 1.0
-    mine = shard_rows(dict(padded, _valid_mask=mask), world_size, rank)
+    padded = _masked(batch, -(-b // world_size) * world_size)
+    mine = shard_rows(padded, world_size, rank)
     return {k: to_device(v, device) for k, v in mine.items()}
+
+
+def own_rows_to_device(batch: dict, device, group,
+                       even: bool = False) -> tuple:
+    """This rank's own loader batch (shard_by_process on under a process
+    group; the global batch is every rank's batch in rank order) -> (its
+    rows as tensors on `device`, the global batch's real rows). The rows
+    are padded by repeating row 0 to the most rows any rank holds, found
+    by one all-reduce of the ranks' row counts, with `_valid_mask` 0 on
+    the padding. even: every rank's batch has as many rows as this one
+    (a drop_last loader's), so no count is exchanged."""
+    b = len(batch["x"])
+    world = dist.get_world_size(group)
+    if even:
+        rows, total = b, world * b
+    else:
+        counts = torch.zeros(world, dtype=torch.int64, device=device)
+        counts[dist.get_rank(group)] = b
+        dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+        rows, total = int(counts.max()), int(counts.sum())
+    mine = _masked(batch, rows)
+    return {k: to_device(v, device) for k, v in mine.items()}, total
 
 
 class Trainer:
@@ -266,10 +304,16 @@ class Trainer:
         prof.stop()
         prof.export_chrome_trace(f"{self.run_dir}/torch_trace.json")
 
-    def _rows(self, batch: dict) -> dict:
-        """This rank's rows of a global loader batch, on its device."""
-        return batch_to_device(batch, self.device, self.world_size,
-                               self.rank)
+    def _rows(self, batch: dict, loader) -> tuple:
+        """(this rank's rows of a loader batch on its device, the global
+        batch's real rows): the rank's whole batch when `loader` is
+        sharded by process (data/dataset.py), else its share of the global
+        batch that every rank reads."""
+        if getattr(loader, "process_sharded", False):
+            return own_rows_to_device(batch, self.device, self.group,
+                                      even=loader.drop_last)
+        return (batch_to_device(batch, self.device, self.world_size,
+                                self.rank), len(batch["x"]))
 
     def fit(self, model, optimizer, train_step, eval_step, train_loader,
             val_loader, hparams: dict, epoch_vis_fn=None,
@@ -301,7 +345,8 @@ class Trainer:
                 wait += time.perf_counter() - tw
                 if batch is None:
                     break
-                metrics = train_step(self._rows(batch), gen)
+                metrics = train_step(self._rows(batch, train_loader)[0],
+                                     gen)
                 flusher.add("train_", metrics, global_step)
                 global_step += 1
                 n_train += 1
@@ -315,8 +360,9 @@ class Trainer:
                 if (self.limit_val_batches is not None
                         and len(val_metrics) >= self.limit_val_batches):
                     break
-                val_metrics.append(eval_step(self._rows(batch)))
-                val_weights.append(len(batch["x"]))
+                rows, n = self._rows(batch, val_loader)
+                val_metrics.append(eval_step(rows))
+                val_weights.append(n)
             val_rows = metrics_to_host(val_metrics)
             for row in val_rows:
                 self.logger.log({f"val_{k}": v for k, v in row.items()},

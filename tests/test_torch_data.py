@@ -336,6 +336,38 @@ def test_process_shard_matches_jax(modules, count, rank):
             dm.kwargs.pop("shard_by_process")
 
 
+@pytest.mark.parametrize("which", ["train", "val", "test"])
+def test_shard_by_process_one_process_unchanged(modules, tmp_path, which):
+    """One process (no process group, JAX's process_count() == 1): with
+    shard_by_process on, a loader is not sharded by process, reads the
+    indices in the order it reads them with the flag off (and, on the
+    static val and test sets, yields the same batches), and the Trainer
+    keeps each batch whole as its global batch."""
+    from garmentnets_tpu_torch.harness.training import Trainer
+    _, tdm = modules
+    off = getattr(tdm, f"{which}_dataloader")()
+    tdm.kwargs["shard_by_process"] = True
+    try:
+        assert not tdm.process_sharded()
+        on = getattr(tdm, f"{which}_dataloader")()
+    finally:
+        tdm.kwargs.pop("shard_by_process")
+    assert not on.process_sharded
+    for attr in ("batch_size", "shuffle", "seed", "drop_last"):
+        assert getattr(on, attr) == getattr(off, attr), attr
+    np.testing.assert_array_equal(on.idxs, off.idxs)
+    batches = list(on)
+    assert len(batches) == len(off) > 0
+    if which != "train":        # train samples are drawn anew each time
+        for a, b in zip(batches, off):
+            _assert_samples_equal(a, b)
+    trainer = Trainer(max_epochs=1, run_dir=str(tmp_path), device="cpu")
+    rows, n = trainer._rows(batches[0], on)
+    assert n == len(batches[0]["x"])
+    assert rows["_valid_mask"].tolist() == [1.0] * n
+    np.testing.assert_array_equal(rows["x"].numpy(), batches[0]["x"])
+
+
 def test_metadata_cache_matches_jax(datasets, tmp_path):
     """metadata_cache_dir: the groups table comes from the cache on the
     second build, and equals the uncached one and the JAX dataset's."""

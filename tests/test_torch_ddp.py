@@ -12,7 +12,13 @@ rtol 1e-5, each gradient within 1e-4 of its largest JAX entry, the
 running statistics within rtol 1e-5 / atol 1e-6 at stage 2; at stage 1
 (dropout off) the same or SPREAD_FACTOR times JAX's own change under a
 1e-6 jitter, whichever is larger. After two Adam steps the ranks'
-parameters are bit-equal. The train CLIs run with
+parameters are bit-equal. With datamodule.shard_by_process=true the two
+ranks' train loaders read every train index once an epoch between them,
+each rank takes its batch whole (a global batch of 2 x B), and the step's
+loss and gradients equal one process's step on the two batches
+concatenated, at the stage-2 bars above; an eval batch that ends uneven
+across the ranks is padded with `_valid_mask` 0 and gives one process's
+loss on the real rows. The train CLIs run with
 trainer.num_devices=2 on trainer.device=cpu: one checkpoint set, written
 by rank 0, that loads into the predict layout; a run whose ranks raise
 exits non-zero.
@@ -41,7 +47,11 @@ from garmentnets_tpu_torch.core.checkpoint import (  # noqa: E402
     load_pipeline_checkpoint)
 from garmentnets_tpu_torch.core.weights import (  # noqa: E402
     numpy_state_from_jax, state_dict_from_jax)
+from garmentnets_tpu_torch.core.random_weights import seeded_init_  # noqa: E402
 from garmentnets_tpu_torch.data.synthetic import generate_dataset  # noqa: E402
+from garmentnets_tpu_torch.harness.training import (  # noqa: E402
+    batch_to_device, make_adam, make_train_fns)
+from garmentnets_tpu_torch.models import pipeline as torch_pipe  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B = 3           # the global batch; padded to 4, 2 rows a rank
@@ -240,6 +250,96 @@ def test_replicas_stay_bit_equal(request, stage):
         moved = [n for n in first if not torch.equal(first[n], last[n])]
         assert moved and not any(n.startswith("pointnet2_nocs.")
                                  for n in moved)
+
+
+# the sharded loaders' datamodule: 4 instances x 2 grips, all in train
+SHARD_DM = dict(
+    metadata_cache_dir=None, batch_size=2, num_workers=0,
+    num_pc_sample=pu.N, num_volume_sample=M, num_surface_sample=M,
+    num_mc_surface_sample=0, surface_sample_ratio=0, surface_sample_std=0.05,
+    surface_normal_noise_ratio=0, surface_normal_std=0.01,
+    enable_augumentation=True, random_rot_range=[-180, 180], num_views=4,
+    pc_noise_std=0, volume_size=16, volume_group="nocs_winding_number_field",
+    tsdf_clip_value=None, volume_absolute_value=False, include_volume=False,
+    static_epoch_seed=False, dataset_split=[1, 0, 0], split_seed=0,
+    shard_by_process=True)
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """Two gloo ranks with shard_by_process=true (torch_ddp_util `shard`),
+    and one process's eval step on the uneven rows' real ones and train
+    step on the ranks' batches concatenated."""
+    d = tmp_path_factory.mktemp("ddp_shard")
+    zarr = d / "synth.zarr"
+    generate_dataset(str(zarr), num_instances=4, grips_per_instance=2,
+                     volume_size=16, mesh_res=8, pts_per_view=100, seed=0,
+                     include_task_space=False)
+    cfg = pu.torch_cfg()
+    model = torch_pipe.ConvImplicitWNFPipeline(cfg)
+    seeded_init_(model, 4)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    dm = dict(SHARD_DM, zarr_path=str(zarr))
+    torch.save({"dm": dm, "cfg": cfg, "state": state}, d / "inputs.pt")
+    rc, _, err = _run("shard", d)
+    assert rc == 0, err[-4000:]
+    ranks = [torch.load(d / f"shard{r}.pt", weights_only=False)
+             for r in range(2)]
+
+    model.pointnet2_nocs.requires_grad_(False)
+    train_step, eval_step = make_train_fns(
+        model, lambda b, gen: model(b),
+        lambda o, b: torch_pipe.pipeline_loss(cfg, o, b),
+        make_adam(model, 1e-3))
+    real = {k: np.concatenate([ranks[0]["batch"][k][:2],
+                               ranks[1]["batch"][k][:1]])
+            for k in ranks[0]["batch"]}
+    eval_loss = float(eval_step(batch_to_device(real, "cpu"))["loss"])
+    both = {k: np.concatenate([r["batch"][k] for r in ranks])
+            for k in ranks[0]["batch"]}
+    loss = float(train_step(batch_to_device(both, "cpu"))["loss"])
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return dict(ranks=ranks, loss=loss, grads=grads, eval_loss=eval_loss,
+                train=sorted(range(8)))
+
+
+def test_shard_by_process_reads_every_index_once(sharded):
+    """Each rank's loader is sharded and reads its own half of the 8 train
+    garments in 2 batches of 2; together the ranks read each index once
+    an epoch."""
+    r0, r1 = sharded["ranks"]
+    assert r0["sharded"] and r1["sharded"]
+    assert r0["n_batches"] == r1["n_batches"] == 2
+    assert not set(r0["seen"]) & set(r1["seen"])
+    assert sorted(r0["seen"] + r1["seen"]) == sharded["train"]
+
+
+def test_shard_by_process_global_batch_is_world_times_b(sharded):
+    """A train step takes each rank's batch whole: 2 real rows a rank,
+    4 in the global batch, and the step's loss and summed gradients are
+    one process's on the concatenated batches."""
+    for r in sharded["ranks"]:
+        assert r["mask"].tolist() == [1.0, 1.0] and r["n_rows"] == 4
+        np.testing.assert_allclose(r["loss"], sharded["loss"], rtol=1e-5)
+        assert set(r["grads"]) == set(sharded["grads"])
+        for name, g in r["grads"].items():
+            ref = sharded["grads"][name].numpy()
+            np.testing.assert_allclose(g.numpy(), ref, rtol=0, err_msg=name,
+                                       atol=1e-4 * np.abs(ref).max())
+
+
+def test_shard_by_process_pads_uneven_eval_rows(sharded):
+    """Rank 0 holds 2 rows and rank 1 one: rank 1 pads to 2 rows with its
+    row 0, masked out, and the global eval loss is one process's on the 3
+    real rows."""
+    r0, r1 = sharded["ranks"]
+    assert r0["eval_mask"].tolist() == [1.0, 1.0]
+    assert r1["eval_mask"].tolist() == [1.0, 0.0]
+    for r in (r0, r1):
+        assert r["n_eval"] == 3
+        np.testing.assert_allclose(r["eval_loss"], sharded["eval_loss"],
+                                   rtol=1e-5)
 
 
 def test_a_failing_rank_fails_the_run(tmp_path):

@@ -1,6 +1,7 @@
 """Import isolation of the port: every module of garmentnets_tpu_torch and
-chip_smoke.py imports with jax and garmentnets_tpu blocked, builds nothing
-at import time, and chip_smoke.py exits non-zero without a CUDA device.
+chip_smoke.py imports with jax, garmentnets_tpu and the repository's
+tools/ blocked, builds nothing at import time, and chip_smoke.py exits
+non-zero without a CUDA device.
 The server and its config loader import without pyyaml, which only the
 CLI's config loading needs."""
 import os
@@ -14,7 +15,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "garmentnets_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "garmentnets_tpu",
+             "tools"):
     sys.modules[name] = None
 import garmentnets_tpu_torch
 mods = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
@@ -23,7 +25,7 @@ for m in mods:
     importlib.import_module(m)
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in
-                ("jax", "jaxlib", "flax", "garmentnets_tpu"))
+                ("jax", "jaxlib", "flax", "garmentnets_tpu", "tools"))
 assert not leaked, leaked
 from garmentnets_tpu_torch.kernels import _build
 assert not _build._LIBS, "a library was built at import time"
@@ -32,7 +34,8 @@ print(len(mods))
 """
 
 # modules of the predict, serve, predict-CLI, eval, training,
-# large-volume and multi-device slices that must be among them
+# large-volume and multi-device slices, and the repository tools' copies,
+# that must be among them
 EXPECTED = [
     "garmentnets_tpu_torch." + m for m in (
         "harness.predict_engine", "harness.serve", "harness.predict",
@@ -47,7 +50,8 @@ EXPECTED = [
         "data.synthetic", "utils.cache", "models.losses",
         "harness.training", "harness.train_pointnet2",
         "harness.train_pipeline", "harness.vis_hooks", "ops.normals",
-        "ops.isosurface", "models.unet3d", "parallel.mesh")]
+        "ops.isosurface", "models.unet3d", "parallel.mesh",
+        "tools.e2e_synthetic", "tools.export_meshes", "tools.bench_input")]
 
 
 def _env():
@@ -65,14 +69,16 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_name_no_jax_import():
-    """No source file of the port imports jax, flax or the JAX package."""
+    """No source file of the port imports jax, flax, the JAX package or
+    the repository's tools/ (the JAX tools)."""
     bad = []
     for f in list((ROOT / "garmentnets_tpu_torch").rglob("*.py")) + [
             ROOT / "chip_smoke.py"]:
         for line in f.read_text().splitlines():
             s = line.strip()
             if (s.startswith(("import ", "from ")) and s.split()[1].split(
-                    ".")[0] in ("jax", "jaxlib", "flax", "garmentnets_tpu")):
+                    ".")[0] in ("jax", "jaxlib", "flax", "garmentnets_tpu",
+                                "tools")):
                 bad.append(f"{f.name}: {s}")
     assert not bad, bad
 

@@ -11,6 +11,13 @@ parallel/mesh.launch_ranks, and each rank writes what it saw into <dir>.
   of make_train_fns over the group and writes rank<r>.pt: the first
   step's global loss, the summed gradients and the running statistics
   after it, and the parameters after every step.
+- `shard`: <dir>/inputs.pt holds datamodule kwargs with
+  shard_by_process=True, a stage-2 configuration and its weights; each
+  rank records the dataset indices its train loader reads over one epoch,
+  runs an eval step over the group on rows that end uneven (rank r keeps
+  2 - r rows of its first batch), then takes that batch as the Trainer
+  does (whole: harness/training.own_rows_to_device) for one stage-2 train
+  step, and writes shard<r>.pt.
 - `fail`: rank 0 waits at an all-reduce while rank 1 raises; the run must
   fail with rank 1's error, not hang.
 - `train`: <dir>/train.pt holds a stage (1 or 2) and a train CLI
@@ -23,8 +30,9 @@ import sys
 import torch
 import torch.distributed as dist
 
+from garmentnets_tpu_torch.data.dataset import ConvImplicitWNFDataModule
 from garmentnets_tpu_torch.harness.training import (
-    batch_to_device, make_adam, make_train_fns)
+    Trainer, batch_to_device, make_adam, make_train_fns, own_rows_to_device)
 from garmentnets_tpu_torch.models import pipeline as pipe
 from garmentnets_tpu_torch.models import pointnet2_nocs as nocs
 from garmentnets_tpu_torch.parallel.mesh import launch_ranks
@@ -84,6 +92,47 @@ def step_worker(out_dir: str) -> None:
     torch.save(out, out_dir / f"rank{rank}.pt")
 
 
+def shard_worker(out_dir: str) -> None:
+    out_dir = pathlib.Path(out_dir)
+    inp = torch.load(out_dir / "inputs.pt", weights_only=False)
+    rank, group = dist.get_rank(), dist.group.WORLD
+    dm = ConvImplicitWNFDataModule(**inp["dm"])
+    dm.prepare_data()
+    loader = dm.train_dataloader()
+    dataset, seen = loader.dataset, []
+
+    class Recorder:
+        def __getitem__(self, i):
+            seen.append(int(i))
+            return dataset[i]
+
+    loader.dataset = Recorder()
+    batches = list(loader)
+    cfg = inp["cfg"]
+    model = pipe.ConvImplicitWNFPipeline(cfg)
+    model.load_state_dict(inp["state"])
+    model.pointnet2_nocs.requires_grad_(False)
+    optimizer = make_adam(model, LR)
+    train_step, eval_step = make_train_fns(
+        model, lambda b, gen: model(b),
+        lambda o, b: pipe.pipeline_loss(cfg, o, b, group), optimizer, group)
+    short = {k: v[:2 - rank] for k, v in batches[0].items()}
+    eval_rows, n_eval = own_rows_to_device(short, "cpu", group)
+    eval_loss = float(eval_step(eval_rows)["loss"])
+    trainer = Trainer(max_epochs=1, run_dir=str(out_dir / "run"),
+                      device="cpu")
+    rows, n_rows = trainer._rows(batches[0], loader)
+    loss = float(train_step(rows)["loss"])
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    torch.save({"seen": seen, "sharded": loader.process_sharded,
+                "n_batches": len(batches), "batch": batches[0],
+                "mask": rows["_valid_mask"], "n_rows": n_rows,
+                "loss": loss, "grads": grads,
+                "eval_mask": eval_rows["_valid_mask"], "n_eval": n_eval,
+                "eval_loss": eval_loss}, out_dir / f"shard{rank}.pt")
+
+
 def fail_worker() -> None:
     if dist.get_rank() == 1:
         raise RuntimeError("rank 1 fails on purpose")
@@ -94,6 +143,8 @@ def main(argv) -> None:
     scenario, out_dir = argv
     if scenario == "steps":
         launch_ranks(step_worker, WORLD, args=(out_dir,), device="cpu")
+    elif scenario == "shard":
+        launch_ranks(shard_worker, WORLD, args=(out_dir,), device="cpu")
     elif scenario == "fail":
         launch_ranks(fail_worker, WORLD, device="cpu")
     elif scenario == "train":
