@@ -15,6 +15,13 @@ layout through `state_dict_from_jax`:
   scale/bias (+ batch_stats)        -> BatchNorm/GroupNorm weight/bias
                                        (+ running_mean/var,
                                        num_batches_tracked = 0)
+
+The JAX trainer's whole state at any step (`{"params", "batch_stats",
+"opt_state", "step"}`, garmentnets_tpu/harness/training.py) reaches the
+port's model and torch.optim.Adam through `training_state_from_jax`:
+optax.adam's first and second moments `mu` and `nu` become `exp_avg` and
+`exp_avg_sq` under the same mapping, and its update count `count` becomes
+`step`.
 """
 from __future__ import annotations
 
@@ -161,3 +168,37 @@ def state_dict_from_jax(variables: dict) -> dict:
     """The port's state_dict (torch tensors) from a JAX variables tree."""
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in numpy_state_from_jax(variables).items()}
+
+
+def _adam_moments(opt_state):
+    """optax.adam's ScaleByAdamState in the trainer's opt_state (the
+    chain's tuple) -> (count, mu, nu)."""
+    for node in opt_state:
+        if all(hasattr(node, k) for k in ("count", "mu", "nu")):
+            return node.count, node.mu, node.nu
+    raise ValueError("no optax.adam state (count, mu, nu) in opt_state")
+
+
+def training_state_from_jax(state: dict, model: torch.nn.Module,
+                            optimizer: torch.optim.Optimizer) -> tuple:
+    """The JAX trainer's state {"params", "batch_stats", "opt_state",
+    "step"} (numpy arrays) -> (the model's state_dict, the state_dict of
+    `optimizer`, a torch.optim.Adam over parameters of `model` such as
+    harness/training.make_adam builds). Each parameter's Adam state is
+    optax's at that step: exp_avg from mu, exp_avg_sq from nu, step from
+    count; the optimizer's own hyperparameters are kept."""
+    count, mu, nu = _adam_moments(state["opt_state"])
+    stats = state.get("batch_stats", {})
+    moments = {k: numpy_state_from_jax({"params": tree, "batch_stats": stats})
+               for k, tree in (("exp_avg", mu), ("exp_avg_sq", nu))}
+    names = {id(p): n for n, p in model.named_parameters()}
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    opt_sd = optimizer.state_dict()
+    opt_sd["state"] = {}
+    for group, saved in zip(optimizer.param_groups, opt_sd["param_groups"]):
+        for p, i in zip(group["params"], saved["params"]):
+            name = names[id(p)]
+            opt_sd["state"][i] = {"step": step.clone(), **{
+                k: torch.from_numpy(np.array(m[name], np.float32))
+                for k, m in moments.items()}}
+    return state_dict_from_jax(state), opt_sd
