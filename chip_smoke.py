@@ -51,7 +51,10 @@ non-zero without one. Phases, each fatal:
      checkpoint written by save_pipeline_checkpoint, 24 garments from 4
      concurrent clients through predict_remote, with launch counts per
      device batch, the overlap of host MC with the next encode, and one
-     request against a direct engine run; then the engine at a tiny size
+     request against a direct engine run; then the same traffic to the
+     service on a mesh (data=2 of cuda:0 on one card, make_mesh_2d(n, 1)
+     on more): garments/s, p50/p90, launches a shard, every garment
+     bit-equal to the one-device service's; then the engine at a tiny size
      on the card against the CPU path at 'highest' and 'high';
   10. several cards (`phase_multi_gpu`; one card stands in where the
      machine has one): `cards: n`; the decode at 'high' in 2, 4 and 8
@@ -64,13 +67,15 @@ non-zero without one. Phases, each fatal:
      (nccl on two cards, else gloo on cuda:0, said so): replicas bit-equal
      after every step, the first step within the CPU tests' bars of one
      process's step (no bar above DDP_BAR_CAP of a tensor's largest
-     entry), ms a step, samples/s and peak memory a rank; on two or more
-     cards, the stage-1 train CLI as shipped on trainer.device=cuda, one
-     nccl rank a card;
+     entry), ms a step, samples/s and peak memory a rank; torchrun of the
+     train CLIs on trainer.device=cuda (one card: the stage-2 CLI,
+     --nproc_per_node 1, nccl; two or more: both CLIs, a rank a card),
+     each exiting 0 with one run directory from rank 0; on two or more
+     cards, both train CLIs as shipped, spawning one nccl rank a card;
   11. the acceptance run (`phase_e2e`): the winding number of a 128^3
      lattice on the card against f64 numpy (within 1e-4); the port's
      tools/e2e_synthetic.py at full width (its 128^3 dataset generated on
-     the card, 4 instances x 3 grips; both stages 400 steps at B=8, each
+     the card, 4 instances x 3 grips; both stages 300 steps at B=8, each
      stage's last losses below half its first; the predict CLI without
      null samples; finite eval metrics) with its launches;
      tools/export_meshes.py on its prediction, parsed back; the decode
@@ -699,13 +704,139 @@ def live_head_(model, x, pos, dev, share=0.01, **engine_kw) -> None:
         lin.bias.fill_(0.5 - q)
 
 
+def drive_clients(url: str, traffic: list) -> tuple:
+    """Each client of `traffic` (a list of its requests) on its own thread,
+    each with its requests in flight at once, through predict_remote ->
+    ({(client, request): results}, request latencies in ms, the wall
+    seconds, errors)."""
+    import threading
+    from garmentnets_tpu_torch.harness.serve import predict_remote
+    results, latencies, errors = {}, [], []
+
+    def send(c, r):
+        t0 = time.perf_counter()
+        try:
+            results[c, r] = predict_remote(url, *traffic[c][r])
+            latencies.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(repr(e))
+
+    def client(c):
+        reqs = [threading.Thread(target=send, args=(c, r))
+                for r in range(len(traffic[c]))]
+        for t in reqs:
+            t.start()
+        for t in reqs:
+            t.join(timeout=300)
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(c,))
+               for c in range(len(traffic))]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in clients):
+        errors.append("a client did not finish within 600 s")
+    return results, latencies, wall, errors
+
+
+def serve_on_mesh(dev, ckpt, traffic: list, one_results: dict) -> dict:
+    """PredictService on a mesh (on one card, cuda:0 listed twice on
+    "data", as sharded_engine stands it in; on two or more,
+    make_mesh_2d(n, 1), n the largest count up to the cards that divides
+    B) on the same checkpoint and the same traffic as phase_serve's
+    one-device run, behind its own HTTP server: garments/s and p50/p90;
+    launches a device batch (FPS and SA 2 a data shard, the decode one a
+    shard and strip, ggm one a shard); every garment bit-equal to the
+    one-device service's result on the same request (tier 1 holds the
+    mesh service to the one-device engine shard by shard). Returns the
+    launches."""
+    import threading
+
+    import torch
+    from garmentnets_tpu_torch.harness.serve import (
+        PredictService, make_http_server, predict_remote)
+    from garmentnets_tpu_torch.kernels import _build
+    from garmentnets_tpu_torch.parallel.mesh import Mesh, make_mesh_2d
+
+    t_mesh = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        label = "data=2 of cuda:0 listed twice (one card)"
+        mesh = Mesh([dev] * 2, ("data",))
+    else:
+        n = max(d for d in range(1, cards + 1) if B % d == 0)
+        label, mesh = f"make_mesh_2d({n}, 1)", make_mesh_2d(n, 1)
+    service = PredictService(ckpt, batch_size=B, num_points=N,
+                             volume_size=VOL, batch_window_ms=20.0,
+                             mesh=mesh)
+    n_data, n_space = service.engine.n_data, mesh.axis_size("space")
+    httpd = make_http_server(service, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        predict_remote(url, *traffic[0][0])                # warm-up batch
+        _build.reset_launch_counts()
+        before = dict(service.stats)
+        results, latencies, wall, errors = drive_clients(url, traffic)
+        launches = dict(_build.LAUNCHES)
+        n_batches = service.stats["batches"] - before["batches"]
+        check(not errors, f"serve on a mesh: requests failed: {errors}")
+        want = {"fps": 2 * n_data * n_batches,
+                "sa_tc": 2 * n_data * n_batches,
+                "dense_decode_tc": n_data * n_space * n_batches,
+                "ggm": n_data * n_batches}
+        check(n_batches >= 1 and launches == want,
+              f"serve on {label}: launches {launches} over {n_batches} "
+              f"batches, expected {want}")
+        n_garments = sum(len(g) for g in results.values())
+        lat = np.percentile(latencies, [50, 90])
+        gps = n_garments / wall
+        log(f"serve on a mesh, {label} {mesh.shape}, on "
+            f"{torch.cuda.get_device_name(0)}: {gps:.3f} garments/s, request "
+            f"latency p50 {lat[0]:.1f} ms, p90 {lat[1]:.1f} ms ({n_garments} "
+            f"garments in {n_batches} device batches, B={B}, N={N}, "
+            f"{VOL}^3, 'high'); launches {launches} (a batch: "
+            f"{ {k: v // n_batches for k, v in launches.items()} })")
+
+        # against the one-device service on the same requests: bit-equal
+        diff, differ = {}, 0
+        for key, res in results.items():
+            differ += len(res) != len(one_results[key])
+            for g, r in zip(res, one_results[key]):
+                differ += sorted(g) != sorted(r) or not all(
+                    np.array_equal(g[k], v) for k, v in r.items())
+                for k, v in r.items():
+                    if k != "ok" and k in g and g[k].shape == v.shape:
+                        diff[k] = max(diff.get(k, 0.0), float(np.abs(
+                            g[k].astype(np.float64) - v).max()))
+        n_ok = sum(int(g["ok"]) for res in results.values() for g in res)
+        log(f"serve on {label}: against the one-device service on the same "
+            f"requests ({n_garments} garments, {n_ok} with a mesh): "
+            f"{differ} garments differ, largest differences {diff}; "
+            f"{time.perf_counter() - t_mesh:.1f} s")
+        check(differ == 0 and n_ok >= 1, f"serve on {label}: {differ} "
+              f"garments differ from the one-device service's, {n_ok} with "
+              "a mesh")
+        return launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+
+
 def phase_serve(dev) -> dict:
     """The port's server at full width on the card: PredictService on a
     checkpoint written by save_pipeline_checkpoint, behind
     make_http_server, driven through predict_remote by 4 clients, each
     with its 3 requests of 2 garments in flight at once (24 garments; with
     one request at a time the 4 clients would fill exactly one batch and
-    the dispatcher would never hold a next batch to overlap)."""
+    the dispatcher would never hold a next batch to overlap); then the
+    same traffic to the service on a mesh (serve_on_mesh). Returns the
+    launches of both runs ("serve", "serve_mesh")."""
     import pathlib
     import tempfile
     import threading
@@ -733,12 +864,12 @@ def phase_serve(dev) -> dict:
     live_head_(model, *normalized_batch(
         *(traffic[c][0] for c in range(n_clients))), dev)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = pathlib.Path(tmp) / "serve.ckpt"
-        save_pipeline_checkpoint(ckpt, cfg, model.state_dict())
-        service = PredictService(ckpt, batch_size=B, num_points=N,
-                                 volume_size=VOL, batch_window_ms=20.0,
-                                 device=dev)
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = pathlib.Path(tmp.name) / "serve.ckpt"
+    save_pipeline_checkpoint(ckpt, cfg, model.state_dict())
+    service = PredictService(ckpt, batch_size=B, num_points=N,
+                             volume_size=VOL, batch_window_ms=20.0,
+                             device=dev)
     httpd = make_http_server(service, "127.0.0.1", 0)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
@@ -747,41 +878,14 @@ def phase_serve(dev) -> dict:
         predict_remote(url, *serve_request(rng, 1))         # warm-up batch
         _build.reset_launch_counts()
         before = dict(service.stats)
-        results, latencies, errors = {}, [], []
-
-        def send(c, r):
-            t0 = time.perf_counter()
-            try:
-                results[c, r] = predict_remote(url, *traffic[c][r])
-                latencies.append((time.perf_counter() - t0) * 1e3)
-            except Exception as e:  # noqa: BLE001 - reported below
-                errors.append(repr(e))
-
-        def client(c):
-            reqs = [threading.Thread(target=send, args=(c, r))
-                    for r in range(n_requests)]
-            for t in reqs:
-                t.start()
-            for t in reqs:
-                t.join(timeout=300)
-
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(c,))
-                   for c in range(n_clients)]
-        for t in clients:
-            t.start()
-        for t in clients:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
+        results, latencies, wall, errors = drive_clients(url, traffic)
         launches = dict(_build.LAUNCHES)
         stats = dict(service.stats)
-        check(not errors and not any(t.is_alive() for t in clients),
-              f"serve requests failed: {errors}")
+        check(not errors, f"serve requests failed: {errors}")
         n_batches = stats["batches"] - before["batches"]
         overlapped = stats["mc_overlapped"] - before["mc_overlapped"]
         with urlopen(url + "/healthz") as resp:
             health = json.loads(resp.read())
-
         n_ok, n_verts = 0, []
         for (c, r), res in sorted(results.items()):
             check(len(res) == per_request, "wrong result count")
@@ -848,11 +952,13 @@ def phase_serve(dev) -> dict:
             f"{[int(g['ok']) for g in got]}, max abs diff {diff:.3e}; "
             f"shipped bricks {shipped.tolist()}")
         check(diff <= 1e-5, "served results differ from a direct run")
-        return {"garments_per_s": gps, "p50_ms": lat[0], "p90_ms": lat[1]}
+        mesh_launches = serve_on_mesh(dev, ckpt, traffic, results)
+        return {"serve": launches, "serve_mesh": mesh_launches}
     finally:
         httpd.shutdown()
         httpd.server_close()
         service.close()
+        tmp.cleanup()
 
 
 CLI_INSTANCES, CLI_GRIPS = 8, 4    # 32 garments, all in the test split
@@ -1906,6 +2012,35 @@ def timed_steps(dev, model, loss_fn, apply_fn, batch: dict, steps: int,
             "step": step_launches, "eval": dict(_build.LAUNCHES)}
 
 
+def counting_redecodes():
+    """Inside the block, PredictEngine._dense_wnf counts the decode
+    launches it makes (yields a one-item list): a batch whose shipped
+    bricks overflow the brick cap is decoded once more for full-volume
+    marching cubes (predict_engine._extract_meshes_shard), beside its
+    encode's decode. A barely trained network's field can overflow."""
+    import contextlib
+
+    from garmentnets_tpu_torch.harness.predict_engine import PredictEngine
+    from garmentnets_tpu_torch.kernels import _build
+
+    @contextlib.contextmanager
+    def patched():
+        dense_wnf, count = PredictEngine._dense_wnf, [0]
+
+        def counted(self, enc):
+            before = _build.LAUNCHES["dense_decode_tc"]
+            out = dense_wnf(self, enc)
+            count[0] += _build.LAUNCHES["dense_decode_tc"] - before
+            return out
+
+        PredictEngine._dense_wnf = counted
+        try:
+            yield count
+        finally:
+            PredictEngine._dense_wnf = dense_wnf
+    return patched()
+
+
 def phase_train(dev, tmp: pathlib.Path) -> dict:
     """Both training stages on the card at the shipped configurations
     (configs/train_*_default.yaml; stage 1 at B=8, 6000 points, 64 bins,
@@ -2027,14 +2162,17 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
         f"datamodule.batch_size={B}", f"datamodule.num_pc_sample={N}",
         "datamodule.volume_size=32", f"datamodule.dataset_split={TRAIN_SPLIT}",
         f"prediction.volume_size={VOL}", f"prediction.device={dev}"])
-    run3, wall3 = run_cli(predict.main, cfg, "train_predict")
-    check(launches["train_predict"] == {"fps": 2, "sa_tc": 2,
-                                        "dense_decode_tc": 1, "ggm": 1},
-          f"predict launches {launches['train_predict']}")
+    with counting_redecodes() as redecoded:
+        run3, wall3 = run_cli(predict.main, cfg, "train_predict")
+    check(launches["train_predict"] == {
+        "fps": 2, "sa_tc": 2, "dense_decode_tc": 1 + redecoded[0],
+        "ggm": 1}, f"predict launches {launches['train_predict']} "
+          f"({redecoded[0]} decoded again after a brick-cap overflow)")
     pred = json.loads((run3 / "summary.json").read_text())
     check(pred["garments"] == len(dm1.test_idxs), "predict garments")
     log(f"predict CLI on the trained stage-2 checkpoint: "
-        f"{pred['garments']} garments in {wall3:.1f} s")
+        f"{pred['garments']} garments in {wall3:.1f} s; decode launches "
+        f"after a brick-cap overflow {redecoded[0]}")
 
     # ---- a fixed full-width batch per stage, outside the CLIs ----
     batch1 = next(iter(dm1.train_dataloader()))
@@ -2373,9 +2511,10 @@ def phase_e2e(dev, tmp: pathlib.Path) -> dict:
     out = tmp / "e2e"
     s1, s2 = E2E_STEPS
     _build.reset_launch_counts()
-    r = e2e_synthetic.main(
-        ["--out", str(out), "--instances", str(E2E_INSTANCES),
-         "--steps1", str(s1), "--steps2", str(s2)], device=dev)
+    with counting_redecodes() as redecoded:
+        r = e2e_synthetic.main(
+            ["--out", str(out), "--instances", str(E2E_INSTANCES),
+             "--steps1", str(s1), "--steps2", str(s2)], device=dev)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     n = E2E_INSTANCES * 3
@@ -2383,10 +2522,11 @@ def phase_e2e(dev, tmp: pathlib.Path) -> dict:
     # partial batch (the JAX tool's prediction.subset=train)
     nb = n // B
     want = {"fps": 2 * (s1 + s2 + nb), "sa_tc": 2 * (s2 + nb),
-            "dense_decode_tc": nb, "ggm": nb}
+            "dense_decode_tc": nb + redecoded[0], "ggm": nb}
     check(launches == want,
           f"e2e launches {launches}, expected {want} (stage-1 steps FPS "
-          f"x2; stage-2 steps FPS x2, SA x2; {nb} predict batches)")
+          f"x2; stage-2 steps FPS x2, SA x2; {nb} predict batches; "
+          f"{redecoded[0]} decoded again after a brick-cap overflow)")
     log(f"e2e on {gpu}: dataset of {n} garments at {VOL}^3 in "
         f"{r['dataset_s']:.1f} s (winding numbers on the card); launches "
         f"{launches}")
@@ -3123,45 +3263,141 @@ def data_parallel_training(dev, cards: int, tmp: pathlib.Path) -> dict:
     return total
 
 
-def train_cli_on_cards(tmp: pathlib.Path, cards: int) -> None:
-    """The stage-1 train CLI as shipped (trainer.num_devices -1) on
-    trainer.device=cuda over phase_train's dataset, one epoch of one step:
-    one nccl rank a card, spawned by the CLI; one checkpoint set and one
-    metrics log, from rank 0, with a finite loss."""
-    from garmentnets_tpu_torch.core.config import load_config
-    from garmentnets_tpu_torch.harness import train_pointnet2
-    cfg = load_config("train_pointnet2_default", [
-        f"datamodule.zarr_path={tmp / 'data.zarr'}",
-        f"datamodule.dataset_split={TRAIN_SPLIT}",
-        "datamodule.volume_size=32", "trainer.device=cuda",
-        "trainer.max_epochs=1", "trainer.limit_train_batches=1"])
-    check(cfg["trainer"]["num_devices"] == -1,
-          "the shipped trainer.num_devices changed")
-    t0 = time.perf_counter()
-    run = train_pointnet2.main(cfg, run_dir=str(tmp / "train_cards"))
-    wall = time.perf_counter() - t0
+TRAIN_CLIS = {1: ("garmentnets_tpu_torch.harness.train_pointnet2",
+                  "train_pointnet2_default"),
+              2: ("garmentnets_tpu_torch.harness.train_pipeline",
+                  "train_pipeline_default")}
+TORCHRUN_TIMEOUT_S = 300.0
+
+
+def cards_cli_overrides(tmp: pathlib.Path, stage: int, s1_ckpt=None) -> list:
+    """A train CLI's overrides on the cards: phase_train's dataset, one
+    epoch of one step, trainer.device=cuda with the shipped
+    trainer.num_devices -1 (a rank a card; under torchrun, its group)."""
+    over = [f"datamodule.zarr_path={tmp / 'data.zarr'}",
+            f"datamodule.dataset_split={TRAIN_SPLIT}",
+            "datamodule.volume_size=32", "trainer.device=cuda",
+            "trainer.max_epochs=1", "trainer.limit_train_batches=1"]
+    if stage == 2:
+        over.append(f"pointnet2_model.checkpoint_path={s1_ckpt}")
+    return over
+
+
+def check_cli_run(run: pathlib.Path, what: str) -> tuple:
+    """One epoch of one step: one finite train loss, one epoch checkpoint
+    and last.ckpt, a summary -> (the loss, the epoch's seconds)."""
     recs, _ = run_summary(run)
     losses = [r["train_loss"] for r in recs if "train_loss" in r]
+    epochs = [r["epoch_sec"] for r in recs if "epoch" in r]
     ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
-    check(len(losses) == 1 and np.isfinite(losses[0]),
-          f"train CLI on {cards} cards: losses {losses}")
+    check(len(losses) == 1 and np.isfinite(losses[0]) and len(epochs) == 1,
+          f"{what}: losses {losses}, epochs {epochs}")
     check(len([c for c in ckpts if c.startswith("epoch=")]) == 1
-          and "last.ckpt" in ckpts,
-          f"train CLI on {cards} cards: checkpoints {ckpts}")
-    log(f"stage-1 train CLI, trainer.device=cuda, trainer.num_devices=-1: "
-        f"{cards} nccl ranks, B={B} ({B // cards} rows a rank), loss "
-        f"{losses[0]:.4f}, checkpoints {ckpts}, {wall:.1f} s with the "
-        "ranks' start")
+          and "last.ckpt" in ckpts, f"{what}: checkpoints {ckpts}")
+    return losses[0], epochs[0]
+
+
+def torchrun_cli(tmp: pathlib.Path, stage: int, nproc: int,
+                 over: list) -> pathlib.Path:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    nproc -m <the stage's train CLI> <over>`, as a user launches it, from
+    its own directory under `tmp` (the CLI's default run directory,
+    outputs/<date>/<time>), in its own process group, killed with it at
+    TORCHRUN_TIMEOUT_S. The launch must exit 0 (torchrun exits non-zero
+    when a rank raises) with one run directory, rank 0's, holding one
+    epoch of one step (check_cli_run). Returns the run directory. The
+    ranks are processes of their own, so their launches are not counted
+    here; the frozen stage 1 of stage 2 runs FPS and SA as in
+    phase_train's counted CLI run."""
+    import signal
+    cwd = tmp / f"torchrun_s{stage}_n{nproc}"
+    cwd.mkdir()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), "-m", TRAIN_CLIS[stage][0], *over],
+        cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=TORCHRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"torchrun stage {stage} x {nproc}: past its "
+              f"{TORCHRUN_TIMEOUT_S:.0f} s")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torchrun stage {stage} x {nproc} exited "
+          f"{proc.returncode}: {err[-3000:]}")
+    runs = [p for p in cwd.glob("outputs/*/*") if p.is_dir()]
+    check(len(runs) == 1, f"torchrun stage {stage} x {nproc}: run "
+          f"directories {runs}")
+    loss, epoch_sec = check_cli_run(runs[0], f"torchrun stage {stage} x "
+                                    f"{nproc}")
+    log(f"torchrun --nproc_per_node {nproc} of the stage-{stage} train CLI, "
+        f"trainer.device=cuda ({nproc} nccl rank(s), init_distributed from "
+        f"torchrun's environment, rank 0's run directory on every rank): "
+        f"one step at B={DDP_B[stage]} ({DDP_B[stage] // nproc} rows a "
+        f"rank), loss {loss:.4f}; the epoch (the cold step, one "
+        f"validation batch, vis, checkpoint) {epoch_sec * 1e3:.1f} ms; "
+        f"{wall:.1f} s for the launch with its processes' start")
+    return runs[0]
+
+
+def train_clis_on_cards(tmp: pathlib.Path, cards: int) -> None:
+    """Both train CLIs as shipped (trainer.num_devices -1) on
+    trainer.device=cuda over phase_train's dataset, one epoch of one step:
+    one nccl rank a card, spawned by the CLI; one checkpoint set and one
+    metrics log, from rank 0, with a finite loss; stage 2 on stage 1's
+    last.ckpt."""
+    from garmentnets_tpu_torch.core.config import load_config
+    from garmentnets_tpu_torch.harness import train_pipeline, train_pointnet2
+    s1_ckpt = None
+    for stage, cli in ((1, train_pointnet2), (2, train_pipeline)):
+        cfg = load_config(TRAIN_CLIS[stage][1],
+                          cards_cli_overrides(tmp, stage, s1_ckpt))
+        check(cfg["trainer"]["num_devices"] == -1,
+              "the shipped trainer.num_devices changed")
+        t0 = time.perf_counter()
+        run = cli.main(cfg, run_dir=str(tmp / f"train_cards_s{stage}"))
+        wall = time.perf_counter() - t0
+        loss, _ = check_cli_run(run, f"stage-{stage} train CLI on {cards} "
+                                "cards")
+        s1_ckpt = run / "checkpoints/last.ckpt"
+        log(f"stage-{stage} train CLI, trainer.device=cuda, "
+            f"trainer.num_devices=-1: {cards} nccl ranks, loss {loss:.4f}, "
+            f"{wall:.1f} s with the ranks' start")
+
+
+def train_clis_launched(tmp: pathlib.Path, cards: int) -> None:
+    """The train CLIs on the cards over phase_train's dataset and stage-1
+    run (in `tmp`): on one card torchrun of the stage-2 CLI with one rank;
+    on two or more, torchrun of both CLIs with a rank a card, then both
+    CLIs as shipped (train_clis_on_cards)."""
+    t0 = time.perf_counter()
+    if cards >= 2:
+        run1 = torchrun_cli(tmp, 1, cards, cards_cli_overrides(tmp, 1))
+        torchrun_cli(tmp, 2, cards, cards_cli_overrides(
+            tmp, 2, run1 / "checkpoints/last.ckpt"))
+        train_clis_on_cards(tmp, cards)
+    else:
+        torchrun_cli(tmp, 2, 1, cards_cli_overrides(
+            tmp, 2, tmp / "train_s1/checkpoints/last.ckpt"))
+        log("one card: the train CLIs' several nccl ranks need two or more")
+    log(f"train CLI launches on the cards: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_multi_gpu(dev, tmp: pathlib.Path) -> dict:
     """Several cards, or one card standing in for them: (1) the decode's
     D strips bit-equal to the whole launch; (2) the sharded engine against
     the one-device engine, its encodes free of host syncs; (3)
-    data-parallel training on two ranks; (4) on two or more cards, the
-    stage-1 train CLI as shipped, one rank a card. Returns the launches
-    of the sharded engine's batches ("multi_gpu") and of the ranks of
-    (3) ("ddp")."""
+    data-parallel training on two ranks; (4) torchrun of the train CLIs
+    on trainer.device=cuda: on one card the stage-2 CLI with one rank
+    (nccl, world 1); on two or more, both CLIs with a rank a card, and
+    both CLIs as shipped spawning a rank a card themselves. Returns the
+    launches of the sharded engine's batches ("multi_gpu") and of the
+    ranks of (3) ("ddp")."""
     import torch
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
@@ -3171,10 +3407,7 @@ def phase_multi_gpu(dev, tmp: pathlib.Path) -> dict:
     log("sharded encodes ran under torch.cuda.set_sync_debug_mode('error'):"
         " no host sync")
     ddp_launches = data_parallel_training(dev, cards, tmp)
-    if cards >= 2:
-        train_cli_on_cards(tmp, cards)
-    else:
-        log("one card: the train CLI's several nccl ranks need two or more")
+    train_clis_launched(tmp, cards)
     log(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
     return {"multi_gpu": engine_launches, "ddp": ddp_launches}
 
@@ -3215,7 +3448,7 @@ def main() -> int:
         launches.update(phase_train(dev, tmp)["launches"])
         launches.update(phase_multi_gpu(dev, tmp))
         launches.update(phase_e2e(dev, tmp))
-    phase_serve(dev)
+    launches.update(phase_serve(dev))
     phase_small_reference(dev)
     with tempfile.TemporaryDirectory(prefix="gn_traj_") as tmp:
         launches.update(phase_train_trajectory(dev, pathlib.Path(tmp)))
@@ -3223,12 +3456,13 @@ def main() -> int:
     # launches over the driven paths: the main path at 'high', the predict
     # CLI, the two variant batches, the 256^3 engine's batches and CLI
     # batch, the predict run on the trained checkpoint, the sharded
-    # engine's batches (its decode strips) and the acceptance run (its
-    # training and predict; all at 'high') for the 'high' decode row, the
-    # main path's 'highest' batch for the 'highest' row, all of them, the
-    # two train CLIs and the data-parallel ranks for the rest
+    # engine's batches (its decode strips), the acceptance run (its
+    # training and predict) and the server's batches, on one device and
+    # on a mesh (all at 'high') for the 'high' decode row, the main path's
+    # 'highest' batch for the 'highest' row, all of them, the two train
+    # CLIs and the data-parallel ranks for the rest
     at_high = ("high", "cli", "holes", "task_space", "large", "large_cli",
-               "train_predict", "multi_gpu", "e2e")
+               "train_predict", "multi_gpu", "e2e", "serve", "serve_mesh")
     for k, row in rows.items():
         if k == "dense_decode_tc":
             row["launches"] = sum(launches[p][k] for p in at_high)

@@ -7,11 +7,14 @@ keeps 2 rows. JAX runs the step's value_and_grad over the padded batch
 sharded on make_mesh(2) (the computation of its make_train_fns'
 train_step); the port's ranks run make_train_fns over the process group
 (tests/torch_ddp_util.py, started as a subprocess under a timeout, which
-spawns the ranks). Bars are tests/test_torch_train.py's: the loss within
-rtol 1e-5, each gradient within 1e-4 of its largest JAX entry, the
-running statistics within rtol 1e-5 / atol 1e-6 at stage 2; at stage 1
-(dropout off) the same or SPREAD_FACTOR times JAX's own change under a
-1e-6 jitter, whichever is larger. After two Adam steps the ranks'
+spawns the ranks), once in float32 and once in float64. Both are held to
+JAX's step computed in float64 (torch_port_util.jax_float64) at
+tests/test_torch_train.py's bars: in float64 every gradient, statistic
+and the loss within 1e-9 of the tensor's largest entry; in float32 the
+loss within rtol 1e-5, each gradient within 1e-4 of the float64 step's
+largest entry, the statistics within 1e-5, or SPREAD_FACTOR times the
+float64 step's own change under a 1e-6 jitter, whichever is larger.
+After two Adam steps the ranks'
 parameters are bit-equal. With datamodule.shard_by_process=true the two
 ranks' train loaders read every train index once an epoch between them,
 each rank takes its batch whole (a global batch of 2 x B), and the step's
@@ -39,8 +42,7 @@ import jax
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import torch_port_util as pu  # noqa: E402
-from test_torch_train import (  # noqa: E402
-    SPREAD_FACTOR, STAT_TOL, _atol, _jitter, _numpy_tree)
+from torch_port_util import _atol, _jitter, _numpy_tree  # noqa: E402
 from test_torch_train_cli import _s1_cfg, _s2_cfg  # noqa: E402
 
 from garmentnets_tpu.models import pipeline as jax_pipe  # noqa: E402
@@ -95,12 +97,15 @@ def _start_ranks(inputs: dict, d: pathlib.Path) -> subprocess.Popen:
     return _start("steps", d)
 
 
-def _ranks(proc: subprocess.Popen, d: pathlib.Path) -> list:
-    """Each rank's record of a started `steps` scenario."""
+def _ranks(proc: subprocess.Popen, d: pathlib.Path) -> dict:
+    """Each rank's records of a started `steps` scenario: {dtype: [rank 0's,
+    rank 1's]}."""
     rc, _, err = _finish(proc)
     assert rc == 0, err[-4000:]
-    return [torch.load(d / f"rank{r}.pt", weights_only=False)
-            for r in range(2)]
+    return {dtype: [torch.load(d / (f"rank{r}.pt" if dtype == "float32" else
+                                    f"rank{r}_{dtype}.pt"),
+                               weights_only=False) for r in range(2)]
+            for dtype in pu.DTYPES}
 
 
 def _padded(batch: dict) -> dict:
@@ -110,15 +115,33 @@ def _padded(batch: dict) -> dict:
     return dict(padded, _valid_mask=mask)
 
 
-def _jax_step(f, params, batch):
-    """value_and_grad of f over the batch sharded on make_mesh(2)."""
+def _jax_step(f, stats):
+    """value_and_grad of f(params, stats, batch) over the padded batch
+    sharded on make_mesh(2): run(params, batch, dtype) -> {name: gradient
+    or updated statistic, "loss"}, every input cast to `dtype`."""
     mesh = jax_mesh.make_mesh(2)
     step = jax.jit(jax.value_and_grad(f, has_aux=True))
-    (loss, mut), grads = step(jax_mesh.replicate_tree(params, mesh),
-                              jax_mesh.shard_batch(_padded(batch), mesh))
-    return float(loss), numpy_state_from_jax({
-        "params": _numpy_tree(grads),
-        "batch_stats": _numpy_tree(mut["batch_stats"])})
+
+    def run(params, batch, dtype):
+        (loss, mut), grads = step(
+            jax_mesh.replicate_tree(pu.as_dtype(params, dtype), mesh),
+            jax_mesh.replicate_tree(pu.as_dtype(stats, dtype), mesh),
+            jax_mesh.shard_batch(pu.as_dtype(_padded(batch), dtype), mesh))
+        out = numpy_state_from_jax({
+            "params": _numpy_tree(grads),
+            "batch_stats": _numpy_tree(mut["batch_stats"])})
+        out["loss"] = float(loss)
+        return out
+    return run
+
+
+def _reference(run, params, batch) -> dict:
+    """JAX's two-device step in float64, its spread under a 1e-6 jitter of
+    the input colours or of the weights, and its float32 step."""
+    ref, spread = pu.float64_reference(run, (params, batch), (
+        (params, dict(batch, x=_jitter(batch["x"], 1))),
+        (_jitter(params, 2), batch)))
+    return dict(ref=ref, spread=spread, j32=run(params, batch, np.float32))
 
 
 @pytest.fixture(scope="module")
@@ -143,14 +166,14 @@ def stage2(variables, tmp_path_factory):
     jcfg = pu.jax_cfg()
     jm = jax_pipe.ConvImplicitWNFPipeline(jcfg)
 
-    def f(params, batch):
-        out, mut = jm.apply({"params": params,
-                             "batch_stats": variables["batch_stats"]},
+    def f(params, stats, batch):
+        out, mut = jm.apply({"params": params, "batch_stats": stats},
                             batch, train=True, mutable=["batch_stats"])
         return jax_pipe.pipeline_loss(jcfg, out, batch)["loss"], mut
 
-    loss, ref = _jax_step(f, variables["params"], batch)
-    return dict(loss=loss, ref=ref, ranks=_ranks(proc, d), batch=batch)
+    ref = _reference(_jax_step(f, variables["batch_stats"]),
+                     variables["params"], batch)
+    return dict(ref, ranks=_ranks(proc, d), batch=batch)
 
 
 @pytest.fixture(scope="module")
@@ -172,28 +195,20 @@ def stage1(variables, tmp_path_factory):
                              {"params": params, "batch_stats": stats}),
                          "batch": batch, "steps": STEPS}, d)
 
-    def f(params, batch):
+    def f(params, stats, batch):
         out, mut = jm.apply({"params": params, "batch_stats": stats},
                             batch["x"], batch["pos"], train=True,
                             mutable=["batch_stats"])
         return jax_nocs.get_metrics(jcfg, out, batch)[0]["loss"], mut
 
-    loss, ref = _jax_step(f, params, batch)
-    spread = {"loss": 0.0}
-    for p2, b2 in ((params, dict(batch, x=_jitter(batch["x"], 1))),
-                   (_jitter(params, 2), batch)):
-        loss2, ref2 = _jax_step(f, p2, b2)
-        spread["loss"] = max(spread["loss"], abs(loss2 - loss))
-        for k, v in ref2.items():
-            spread[k] = max(spread.get(k, 0.0),
-                            float(np.abs(v - ref[k]).max()))
-    return dict(loss=loss, ref=ref, spread=spread, ranks=_ranks(proc, d))
+    ref = _reference(_jax_step(f, stats), params, batch)
+    return dict(ref, ranks=_ranks(proc, d))
 
 
 def test_ranks_take_padded_rows(stage2):
     """Rank 0 holds rows 0-1 and rank 1 holds row 2 and a copy of row 0,
     masked out."""
-    r0, r1 = (r["rows"] for r in stage2["ranks"])
+    r0, r1 = (r["rows"] for r in stage2["ranks"]["float32"])
     x = stage2["batch"]["x"]
     np.testing.assert_array_equal(r0["x"].numpy(), x[:2])
     np.testing.assert_array_equal(r1["x"].numpy(), np.stack([x[2], x[0]]))
@@ -201,37 +216,40 @@ def test_ranks_take_padded_rows(stage2):
     assert r1["_valid_mask"].tolist() == [1.0, 0.0]
 
 
-def test_stage2_step_matches_jax_two_devices(stage2):
-    ref = stage2["ref"]
-    for r in stage2["ranks"]:
-        np.testing.assert_allclose(r["loss"], stage2["loss"], rtol=1e-5)
+def _check_ranks(run: dict, dtype: str, what: str,
+                 frozen: str = None) -> None:
+    """Each rank's first step in `dtype` against JAX's two-device step in
+    float64 (pu.check_against_float64): the global loss (in float64 the
+    sum of the ranks' float64 shares), the summed gradients and the
+    running statistics."""
+    ranks = run["ranks"][dtype]
+    for i, r in enumerate(ranks):
         assert set(r["grads"]) and not any(
             k.startswith("pointnet2_nocs.") for k in r["grads"])
-        for name, g in r["grads"].items():
-            np.testing.assert_allclose(
-                g.numpy(), ref[name], rtol=0, err_msg=name,
-                atol=1e-4 * np.abs(ref[name]).max())
-        for name, b in r["stats"].items():
-            if name.endswith(("running_mean", "running_var")):
-                np.testing.assert_allclose(b.numpy(), ref[name],
-                                           **STAT_TOL, err_msg=name)
+        got = {n: g.double().numpy() for n, g in r["grads"].items()}
+        got.update({n: b.double().numpy() for n, b in r["stats"].items()
+                    if n.endswith(("running_mean", "running_var"))})
+        got["loss"] = (sum(x["loss_share"] for x in ranks)
+                       if dtype == "float64" else r["loss"])
+        pu.check_against_float64(got, run["ref"], run["spread"], dtype,
+                                 f"{what}, rank {i}",
+                                 None if i else run["j32"], frozen=frozen)
 
 
-def test_stage1_step_matches_jax_two_devices(stage1):
-    ref, spread = stage1["ref"], stage1["spread"]
-    for r in stage1["ranks"]:
-        assert abs(r["loss"] - stage1["loss"]) <= max(
-            1e-5 * abs(stage1["loss"]), SPREAD_FACTOR * spread["loss"])
-        for name, g in r["grads"].items():
-            np.testing.assert_allclose(g.numpy(), ref[name], rtol=0,
-                                       err_msg=name, atol=_atol(
-                                           ref[name], spread[name], 1e-4))
-        for name, b in r["stats"].items():
-            if name.endswith(("running_mean", "running_var")):
-                np.testing.assert_allclose(b.numpy(), ref[name], rtol=0,
-                                           err_msg=name, atol=_atol(
-                                               ref[name], spread[name],
-                                               1e-5))
+@pytest.mark.parametrize("dtype", pu.DTYPES)
+def test_stage2_step_matches_jax_two_devices(stage2, dtype):
+    """The ranks' stage-2 step held to JAX's on a 2-device mesh computed
+    in float64, at tests/test_torch_train.py's bars (float64 within
+    pu.F64_REL of each tensor's largest entry; float32 at
+    pu.check_against_float64's)."""
+    _check_ranks(stage2, dtype, "two-rank stage-2 step",
+                 frozen="pointnet2_nocs.")
+
+
+@pytest.mark.parametrize("dtype", pu.DTYPES)
+def test_stage1_step_matches_jax_two_devices(stage1, dtype):
+    """The ranks' stage-1 step (dropout off), as the stage-2 one."""
+    _check_ranks(stage1, dtype, "two-rank stage-1 step")
 
 
 @pytest.mark.parametrize("stage", ["stage1", "stage2"])
@@ -239,7 +257,7 @@ def test_replicas_stay_bit_equal(request, stage):
     """The summed gradients, the statistics and, after each of two Adam
     steps, every parameter are the same bits on both ranks; at stage 2 the
     frozen stage 1 does not move."""
-    r0, r1 = request.getfixturevalue(stage)["ranks"]
+    r0, r1 = request.getfixturevalue(stage)["ranks"]["float32"]
     for name in r0["grads"]:
         assert torch.equal(r0["grads"][name], r1["grads"][name]), name
     for name in r0["stats"]:

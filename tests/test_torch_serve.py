@@ -9,6 +9,15 @@ round trip, concurrent clients, resampling, failure isolation, bad
 requests, /healthz and a hot reload whose new volume-decoder weights must
 reach the decoded WNF.
 
+On a device mesh (the counterpart of tests/test_serve.py's
+test_service_with_device_mesh): the port's service on Mesh(["cpu"] * 2,
+("data",)) and on a (2, 2) ("data", "space") mesh answers the requests of
+two client threads at once; each of its device batches equals, shard by
+shard, the one-device engine run on that shard's rows bit for bit, every
+served output lies within 1e-5 of its largest value of the one-device
+service's on the same requests, and the results match the JAX service on
+JAX's 2-device CPU mesh at test_results_match_jax_service's bars.
+
 The tiny pipeline's volume-decoder head is set to relu(z + b) with b
 chosen so that about 10% of the voxels of the first request lie above the
 iso level, so that marching cubes and the warp have surfaces to work on.
@@ -127,29 +136,35 @@ def both_results(ckpts, service):
                for x, pos in _requests()]
     finally:
         jsvc.close()
-    # the port's warp at the JAX service's vertices rounded to f16, the
-    # queries the JAX engine evaluates (its wire format), on a separate
-    # engine
-    eng = PredictEngine(service.cfg, service.engine.model.state_dict(),
-                        volume_size=pu.VOL, decode_precision="highest",
-                        mc_threads=1, device="cpu")
+    # the port's warp at the JAX service's vertices rounded to f16
+    warps16 = _warps_at_jax_vertices(service.cfg,
+                                     service.engine.model.state_dict(),
+                                     [j for j, _ in out])
+    return [(j, t, w) for (j, t), w in zip(out, warps16)]
+
+
+def _warps_at_jax_vertices(cfg, state_dict, jax_results) -> list:
+    """The port's warp at each JAX result's vertices rounded to f16 (the
+    queries the JAX engine evaluates, its wire format), on a separate
+    one-device engine, request by request."""
+    eng = PredictEngine(cfg, state_dict, volume_size=pu.VOL,
+                        decode_precision="highest", mc_threads=1,
+                        device="cpu")
     warps16 = []
-    for (x, pos), (jres, _) in zip(_requests(), out):
+    for (x, pos), jres in zip(_requests(), jax_results):
         enc = eng.encode(*_padded(x, pos))
         warps16.append(eng.warp_batch(enc, [
             (j["verts"].astype(np.float16).astype(np.float32), None)
             if int(j["ok"]) else None for j in jres]))
-    return [(j, t, w) for (j, t), w in zip(out, warps16)]
+    return warps16
 
 
-def test_results_match_jax_service(both_results):
-    """Meshes, normals and volume values as served; the warp field and the
-    ggm at the vertices through the port's warp at the f16-rounded JAX
-    vertices, the queries the JAX engine evaluates (the served port warp
-    equals the port engine's at its own f32 vertices:
-    test_submit_matches_engine_on_padded_batch)."""
+def _check_against_jax(both: list) -> int:
+    """(JAX results, the port's results, the port's warps at the JAX
+    vertices) of each request at test_results_match_jax_service's bars;
+    returns how many garments had a surface."""
     n_ok = 0
-    for jres, tres, warps16 in both_results:
+    for jres, tres, warps16 in both:
         assert len(jres) == len(tres)
         for j, t, w in zip(jres, tres, warps16):
             assert int(t["ok"]) == int(j["ok"])
@@ -174,7 +189,16 @@ def test_results_match_jax_service(both_results):
             for k in ("warp_field", "verts_ggm"):
                 np.testing.assert_allclose(w[k], j[k], rtol=2e-3, atol=1e-3,
                                            err_msg=k)
-    assert n_ok >= 4          # most garments have a surface to compare
+    return n_ok
+
+
+def test_results_match_jax_service(both_results):
+    """Meshes, normals and volume values as served; the warp field and the
+    ggm at the vertices through the port's warp at the f16-rounded JAX
+    vertices, the queries the JAX engine evaluates (the served port warp
+    equals the port engine's at its own f32 vertices:
+    test_submit_matches_engine_on_padded_batch)."""
+    assert _check_against_jax(both_results) >= 4   # most have a surface
 
 
 def test_normalize_cloud_matches_jax():
@@ -418,3 +442,153 @@ def test_service_checks_card_limits_at_start_up(ckpts, monkeypatch):
         serve.PredictService(ckpts["main"][1], batch_size=BATCH,
                              num_points=20000, volume_size=pu.VOL,
                              device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the service on a device mesh
+# ---------------------------------------------------------------------------
+SERVE_MESHES = {"data2": (("cpu", "cpu"), ("data",)),
+                "data2_space2": ((("cpu", "cpu"), ("cpu", "cpu")),
+                                 ("data", "space"))}
+
+
+def _two_clients(svc) -> list:
+    """_requests() from two client threads at once (requests 0 and 2 from
+    one, 1 from the other) -> each request's results."""
+    results, errs = [None] * 3, []
+
+    def client(ids):
+        try:
+            for i in ids:
+                results[i] = svc.submit(*_requests()[i])
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(ids,))
+               for ids in ((0, 2), (1,))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errs and not any(t.is_alive() for t in threads), errs
+    return results
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(ckpts, service):
+    """Per mesh of SERVE_MESHES: the port's service on it (decode at
+    'highest', as `service`), _two_clients' results and the jobs of each
+    device batch its dispatcher formed, in order; and the one-device
+    `service`'s results on the same requests."""
+    from garmentnets_tpu_torch.parallel.mesh import Mesh
+    out = {"one": [service.submit(x, pos) for x, pos in _requests()]}
+    for name, (devices, axes) in SERVE_MESHES.items():
+        svc = _service(ckpts["main"][1], mesh=Mesh(devices, axes),
+                       engine_kwargs={"decode_precision": "highest"})
+        batches = []
+        encode_jobs = svc._encode_jobs
+
+        def record(jobs, encode_jobs=encode_jobs, batches=batches):
+            batches.append(list(jobs))
+            return encode_jobs(jobs)
+
+        svc._encode_jobs = record
+        try:
+            out[name] = dict(results=_two_clients(svc), batches=batches,
+                             n_data=svc.engine.n_data)
+        finally:
+            svc.close()
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_MESHES))
+def test_mesh_service_shards_equal_the_one_device_engine(service, mesh_runs,
+                                                         name):
+    """Each device batch the mesh service formed (zero-padded to BATCH
+    rows), shard by shard: every garment's served result equals the
+    one-device engine's encode -> extract_meshes -> warp_batch on that
+    shard's rows, bit for bit."""
+    run = mesh_runs[name]
+    assert sum(map(len, run["batches"])) == 6
+    eng = PredictEngine(service.cfg, service.engine.model.state_dict(),
+                        volume_size=pu.VOL, decode_precision="highest",
+                        mc_threads=1, device="cpu")
+    per = BATCH // run["n_data"]
+    for jobs in run["batches"]:
+        x = np.zeros((BATCH, POINTS, 3), np.float32)
+        pos = np.zeros((BATCH, POINTS, 3), np.float32)
+        for i, job in enumerate(jobs):
+            x[i], pos[i] = job.x, job.pos
+        for s in range(run["n_data"]):
+            rows = slice(s * per, (s + 1) * per)
+            enc = eng.encode(x[rows], pos[rows])
+            eng.prefetch(enc, extra_keys=("pred_nocs",
+                                          "pred_nocs_confidence"))
+            meshes = eng.extract_meshes(enc)
+            warps = eng.warp_batch(enc, meshes)
+            host = eng.host_outputs(enc)
+            for i, job in enumerate(jobs[rows]):
+                r, m, w = job.result, meshes[i], warps[i]
+                assert "error" not in r, r.get("error")
+                np.testing.assert_array_equal(
+                    r["pred_nocs"], host["pred_nocs"][i].numpy())
+                np.testing.assert_array_equal(
+                    r["pred_nocs_confidence"],
+                    host["pred_nocs_confidence"][i].numpy())
+                assert int(r["ok"]) == int(m is not None)
+                if int(r["ok"]):
+                    for k, v in zip(("verts", "faces", "volume_value"),
+                                    (m[0], m[1], m[2])):
+                        np.testing.assert_array_equal(r[k], v, err_msg=k)
+                    for k in ("warp_field", "verts_ggm"):
+                        np.testing.assert_array_equal(r[k], w[k], err_msg=k)
+    eng.close()
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_MESHES))
+def test_mesh_service_near_the_one_device_service(mesh_runs, name):
+    """Every served output within 1e-5 of its largest value of the
+    one-device service's on the same requests (CPU 3D convolutions round
+    by the batch size), with the same ok flags and faces."""
+    n_ok = 0
+    for got, ref in zip(mesh_runs[name]["results"], mesh_runs["one"]):
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert sorted(g) == sorted(r) and int(g["ok"]) == int(r["ok"])
+            n_ok += int(r["ok"])
+            for k, v in r.items():
+                if k == "faces":
+                    np.testing.assert_array_equal(g[k], v)
+                elif k != "ok":
+                    np.testing.assert_allclose(
+                        g[k], v, rtol=0, atol=1e-5 * np.abs(v).max(),
+                        err_msg=k)
+    assert n_ok >= 4
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_results(ckpts):
+    """The JAX service on JAX's 2-device CPU mesh, the requests in turn."""
+    from jax.sharding import Mesh as JaxMesh
+    jsvc = jax_serve.PredictService(
+        ckpts["main"][0], batch_size=BATCH, num_points=POINTS,
+        volume_size=pu.VOL, batch_window_ms=30.0,
+        mesh=JaxMesh(np.asarray(jax.devices()[:2]), ("data",)),
+        engine_kwargs={"precision": jax.lax.Precision.HIGHEST,
+                       "warp_bucket": 64})
+    try:
+        return [jsvc.submit(x, pos) for x, pos in _requests()]
+    finally:
+        jsvc.close()
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_MESHES))
+def test_mesh_service_matches_jax_mesh_service(service, mesh_runs,
+                                               jax_mesh_results, name):
+    """The port's mesh service against the JAX service on a 2-device
+    mesh, at test_results_match_jax_service's bars."""
+    warps16 = _warps_at_jax_vertices(service.cfg,
+                                     service.engine.model.state_dict(),
+                                     jax_mesh_results)
+    assert _check_against_jax(list(zip(
+        jax_mesh_results, mesh_runs[name]["results"], warps16))) >= 4

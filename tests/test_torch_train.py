@@ -1,28 +1,31 @@
 """Training of the port against the JAX package on the CPU.
 
 Inputs come from numpy seeds; weights are carried from the JAX variables
-of torch_port_util by core/weights.state_dict_from_jax. Tolerances:
+of torch_port_util by core/weights.state_dict_from_jax.
 
-- masked BatchNorm train step against MaskedBatchNorm: output and
-  gradients within rtol 1e-5 / atol 1e-5, running statistics within
-  rtol 1e-5 / atol 1e-6;
+Train-mode steps (the masked BatchNorm, each stage-1 module's VJP, the
+whole stage-1 step, one stage-2 step) are held to JAX's step computed in
+float64 (torch_port_util.jax_float64; its docstring says why float64 is
+the reference), each test in two cases:
+
+- float64: the port's step in float64 within F64_REL (1e-9) of each
+  tensor's largest entry, in every output, gradient, running statistic
+  and the loss: the exact parity check;
+- float32: the port's float32 step within rel of the float64 step's
+  largest entry, or SPREAD_FACTOR times the float64 step's own change
+  under a 1e-6 jitter of the inputs or of the weights where that is
+  larger (torch_port_util._atol): rel is 1e-4 for gradients, 1e-5 for
+  outputs and statistics, and 1e-5 for every tensor of the masked
+  BatchNorm; the loss within rtol 1e-5. JAX's own float32 step is only
+  printed (its distance from float64). The stage-2 step's stage 1 stays
+  bit-equal through the Adam step.
+
+test_planted_faults_fail_the_float32_bars shows that these bars still
+catch real faults. Other tolerances:
+
 - every loss variant against the JAX loss on the same logits: each metric
   within rtol 1e-6 / atol 1e-6, the gradient of the loss within 1e-5 of
   its largest entry;
-- one stage-2 train step at the tiny configuration against
-  jax.value_and_grad of the JAX model with mutable batch_stats: the loss
-  within rtol 1e-5, each parameter's gradient within 1e-4 of that
-  tensor's largest JAX gradient, the updated running statistics within
-  rtol 1e-5 / atol 1e-6; the stage-1 part of the state stays bit-equal
-  through the Adam step;
-- stage 1 (dropout off), module by module in training mode: output and
-  statistics within 1e-5 of their largest entry, gradients within 1e-4;
-  and the whole stage-1 step, the same bars. Where a tensor is
-  ill-conditioned, the bar is instead SPREAD_FACTOR times how far JAX's
-  own result moves when its inputs or weights are jittered by 1e-6
-  (relative): a train-mode step at B=2 is chaotic at rounding level,
-  and that jitter moves JAX's own stage-1 gradients by more than 1e-4
-  of a tensor's largest entry;
 - torch.optim.Adam against optax.adam over 3 steps on identical
   gradients: parameters within 1e-7 absolute plus 1e-7 relative.
 
@@ -30,8 +33,10 @@ With only a few steps Adam turns rounding-level gradient differences into
 +-lr flips, so the port is held to JAX on gradients at one state, and Adam
 is tested apart on identical gradients.
 """
+import contextlib
 import copy
 import dataclasses
+import functools
 import pathlib
 import sys
 
@@ -61,9 +66,6 @@ from garmentnets_tpu_torch.models import pointnet2_nocs as nocs  # noqa: E402
 from garmentnets_tpu_torch.models.mlp import PointMLP  # noqa: E402
 from garmentnets_tpu_torch.ops.scatter import scatter_to_grid  # noqa: E402
 
-BN_TOL = dict(rtol=1e-5, atol=1e-5)
-STAT_TOL = dict(rtol=1e-5, atol=1e-6)
-
 
 def _t(a):
     return torch.from_numpy(np.array(a))
@@ -72,12 +74,14 @@ def _t(a):
 # ---------------------------------------------------------------------------
 # masked BatchNorm
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("masked", [False, True])
-def test_masked_batch_norm_train_step_matches_jax(masked):
-    """A 2-layer PointMLP in training mode on [3, 5, 7, 4] inputs, with the
-    ball query's kind of mask (valid slots first, at least one a row) or
-    none: output, gradients of a weighted sum with respect to the input
-    and every parameter, and the running statistics."""
+BN_REL = 1e-5       # the float32 step's bar, of each tensor's largest entry
+
+
+def _bn_case(masked: bool) -> dict:
+    """A 2-layer PointMLP's inputs on [3, 5, 7, 4], with the ball query's
+    kind of mask (valid slots first, at least one a row) or none, its JAX
+    variables (norm parameters and statistics randomized) and the output
+    cotangent."""
     rng = np.random.RandomState(3)
     x = rng.randn(3, 5, 7, 4).astype(np.float32)
     mask = None
@@ -89,38 +93,87 @@ def test_masked_batch_norm_train_step_matches_jax(masked):
                             train=False))
     variables = {k: pu._randomize(v, rng) for k, v in variables.items()}
     wout = rng.randn(3, 5, 7, 5).astype(np.float32)
+    return dict(x=x, mask=mask, variables=variables, wout=wout)
+
+
+def _jax_bn_step(case: dict, params, x, dtype) -> dict:
+    """JAX's step in `dtype` (float64 inside pu.jax_float64 only): the
+    output, the gradients of sum(y * wout) with respect to the input and
+    every parameter, and the running statistics, in the port's layout."""
+    jm = jax_mlp.PointMLP((4, 6, 5))
+    mask = case["mask"]
+    stats = pu.as_dtype(case["variables"]["batch_stats"], dtype)
+    wout = np.asarray(case["wout"], dtype)
 
     def f(params, x):
-        y, mut = jm.apply({"params": params,
-                           "batch_stats": variables["batch_stats"]},
+        y, mut = jm.apply({"params": params, "batch_stats": stats},
                           x, mask=None if mask is None else jnp.asarray(mask),
                           train=True, mutable=["batch_stats"])
         return jnp.sum(y * wout), (y, mut)
 
-    (_, (y_ref, mut)), (g_par, g_x) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(variables["params"], jnp.asarray(x))
+    (_, (y, mut)), (g_par, g_x) = jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True)(pu.as_dtype(params, dtype),
+                                         np.asarray(x, dtype))
+    out = {}
+    weights._put_mlp(out, "m", pu._numpy_tree(g_par),
+                     pu._numpy_tree(mut["batch_stats"]))
+    out = {k[2:]: v for k, v in out.items()
+           if not k.endswith("num_batches_tracked")}
+    out.update(out=np.asarray(y), x_grad=np.asarray(g_x))
+    return out
 
-    sd, ref = {}, {}
-    weights._put_mlp(sd, "m", variables["params"],
-                     variables["batch_stats"])
-    weights._put_mlp(ref, "m", _numpy_tree(g_par),
-                     _numpy_tree(mut["batch_stats"]))
+
+@functools.lru_cache(maxsize=None)
+def _bn_reference(masked: bool) -> tuple:
+    """(case, JAX's float64 step, its spread under a 1e-6 jitter of the
+    input or of the parameters, JAX's float32 step)."""
+    case = _bn_case(masked)
+    params, x = case["variables"]["params"], case["x"]
+
+    def run(params, x, dtype):
+        return _jax_bn_step(case, params, x, dtype)
+
+    ref, spread = pu.float64_reference(run, (params, x), (
+        (params, pu._jitter(x, 1)), (pu._jitter(params, 2), x)))
+    return case, ref, spread, run(params, x, np.float32)
+
+
+def _port_bn_step(case: dict, dtype) -> dict:
+    """The port's PointMLP step in `dtype`, in _jax_bn_step's layout."""
+    sd = {}
+    weights._put_mlp(sd, "m", case["variables"]["params"],
+                     case["variables"]["batch_stats"])
     m = PointMLP((4, 6, 5))
     m.load_state_dict({k[2:]: _t(v) for k, v in sd.items()})
-    m.train()
-    xt = _t(x).requires_grad_(True)
+    m.to(dtype).train()
+    xt = _t(case["x"]).to(dtype).requires_grad_(True)
+    mask = case["mask"]
     y = m(xt, mask=None if mask is None else _t(mask))
-    (y * _t(wout)).sum().backward()
-    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
-                               **BN_TOL)
-    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_x), **BN_TOL)
-    for name, p in m.named_parameters():
-        np.testing.assert_allclose(p.grad.numpy(), ref["m." + name],
-                                   **BN_TOL, err_msg=name)
-    for name, b in m.named_buffers():
-        if not name.endswith("num_batches_tracked"):
-            np.testing.assert_allclose(b.numpy(), ref["m." + name],
-                                       **STAT_TOL, err_msg=name)
+    (y * _t(case["wout"]).to(dtype)).sum().backward()
+    out = {"out": y.detach().numpy(), "x_grad": xt.grad.numpy()}
+    out.update({k: p.grad.numpy() for k, p in m.named_parameters()})
+    out.update({k: b.numpy() for k, b in m.named_buffers()
+                if not k.endswith("num_batches_tracked")})
+    return out
+
+
+@pytest.mark.parametrize("masked,dtype", [
+    (False, "float32"), (True, "float32"), (False, "float64"),
+    (True, "float64")], ids=["False", "True", "False-float64",
+                             "True-float64"])
+def test_masked_batch_norm_train_step_matches_jax(masked, dtype):
+    """A 2-layer PointMLP in training mode on [3, 5, 7, 4] inputs, masked
+    or not: output, gradients of a weighted sum with respect to the input
+    and every parameter, and the running statistics, held to JAX's step in
+    float64 (pu.jax_float64). In float64 the port's within pu.F64_REL of
+    each tensor's largest entry; in float32 within BN_REL of it, or
+    SPREAD_FACTOR times the float64 step's own change under a 1e-6
+    jitter where that is larger. JAX's own float32 step is printed."""
+    case, ref, spread, j32 = _bn_reference(masked)
+    got = _port_bn_step(case, getattr(torch, dtype))
+    assert set(got) == set(ref)
+    pu.check_against_float64(got, ref, spread, dtype,
+                             f"masked BN, mask {masked}", j32, rel=BN_REL)
 
 
 def test_masked_batch_norm_ignores_invalid_slots():
@@ -277,33 +330,17 @@ def test_scatter_max_gradient_splits_ties_as_jax():
 
 
 # ---------------------------------------------------------------------------
-# one train step of each stage against jax.value_and_grad
+# one train step of each stage against JAX's step in float64
 # ---------------------------------------------------------------------------
-def _compare_step(model, ref_loss, loss, jax_grads, jax_stats):
-    """Loss, each parameter's gradient and the running statistics of a
-    port train step against the JAX step's."""
-    np.testing.assert_allclose(float(loss.detach()), float(ref_loss),
-                               rtol=1e-5)
-    ref = numpy_state_from_jax({"params": jax_grads,
-                                "batch_stats": jax_stats})
-    n = 0
-    for name, p in model.named_parameters():
-        g = np.asarray(ref[name])
-        if p.grad is None:
-            assert not p.requires_grad and not g.any(), name
-            continue
-        np.testing.assert_allclose(p.grad.numpy(), g, rtol=0,
-                                   atol=1e-4 * np.abs(g).max(), err_msg=name)
-        n += 1
-    for name, b in model.named_buffers():
-        if name.endswith("running_mean") or name.endswith("running_var"):
-            np.testing.assert_allclose(b.numpy(), ref[name], **STAT_TOL,
-                                       err_msg=name)
-    return n
-
-
-def _numpy_tree(t):
-    return jax.tree_util.tree_map(np.asarray, t)
+def _port_step_values(model, loss) -> dict:
+    """A port step's loss, every parameter's gradient and every updated
+    running statistic, as float64 numpy."""
+    out = {"loss": float(loss.detach())}
+    out.update({n: p.grad.double().numpy()
+                for n, p in model.named_parameters() if p.grad is not None})
+    out.update({n: b.double().numpy() for n, b in model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -312,34 +349,34 @@ def variables():
 
 
 STAGE1_MODULES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
-# how many times JAX's own spread (see _atol) the port may differ by
-SPREAD_FACTOR = 10
 
 
-def _jitter(tree, seed: int):
-    """Every float of a numpy tree times (1 + 1e-6 N(0, 1)): about the
-    rounding of an f32 dot product of a hundred terms, the size of the
-    differences between two implementations that sum in other orders."""
-    rng = np.random.RandomState(seed)
-    return jax.tree_util.tree_map(
-        lambda a: (a * (1 + 1e-6 * rng.randn(*np.shape(a)))).astype(
-            np.float32) if np.asarray(a).dtype == np.float32 else a, tree)
+def jax_step(f, stats):
+    """JAX's train step f(params, stats, batch) -> (loss, mutated
+    variables), jitted: run(params, batch, dtype) -> {name: gradient or
+    updated statistic, "loss"} in the port's layout, every input cast to
+    `dtype` (float64 inside pu.jax_float64 only)."""
+    step = jax.jit(jax.value_and_grad(f, has_aux=True))
 
-
-def _atol(ref, spread, rel):
-    """The tolerance on one tensor: rel of its largest entry, or
-    SPREAD_FACTOR times the most that JAX's own result moved when its
-    inputs or its weights were jittered (_jitter), whichever is larger."""
-    return max(rel * np.abs(ref).max(), SPREAD_FACTOR * spread)
+    def run(params, batch, dtype):
+        (loss, mut), grads = step(pu.as_dtype(params, dtype),
+                                  pu.as_dtype(stats, dtype),
+                                  pu.as_dtype(batch, dtype))
+        out = numpy_state_from_jax({
+            "params": pu._numpy_tree(grads),
+            "batch_stats": pu._numpy_tree(mut["batch_stats"])})
+        out["loss"] = float(loss)
+        return out
+    return run
 
 
 @pytest.fixture(scope="module")
 def stage1(variables):
     """The JAX stage 1 (dropout off) in training mode at pu.inputs(): its
-    parameters and statistics, the JAX step's loss, gradients and updated
-    statistics on a batch with random ground truth, and the spread of each
-    (the largest change of each tensor when the input colours, or all the
-    weights, are jittered)."""
+    parameters and statistics, a batch with random ground truth, JAX's
+    step on it in float64 (loss, gradients, updated statistics) and the
+    spread of each (the largest change of each tensor when the input
+    colours, or all the weights, are jittered), and JAX's float32 step."""
     rng = np.random.RandomState(11)
     x = pu.inputs()
     batch = {"x": x["x"], "pos": x["pos"],
@@ -347,44 +384,36 @@ def stage1(variables):
              "nocs_grip_point": rng.rand(pu.B, 3).astype(np.float32),
              "_valid_mask": np.ones(pu.B, np.float32)}
     jcfg = dataclasses.replace(pu.jax_cfg().pointnet2, dropout=False)
-    jm = jax_nocs.PointNet2NOCS(jcfg)
     params = variables["params"]["pointnet2_nocs"]
     stats = variables["batch_stats"]["pointnet2_nocs"]
+    jm = jax_nocs.PointNet2NOCS(jcfg)
 
-    def f(params, batch):
+    def f(params, stats, batch):
         out, mut = jm.apply({"params": params, "batch_stats": stats},
                             batch["x"], batch["pos"], train=True,
                             mutable=["batch_stats"])
         return jax_nocs.get_metrics(jcfg, out, batch)[0]["loss"], mut
 
-    step = jax.jit(jax.value_and_grad(f, has_aux=True))
-
-    def run(params, batch):
-        (loss, mut), grads = step(
-            params, {k: jnp.asarray(v) for k, v in batch.items()})
-        return float(loss), numpy_state_from_jax({
-            "params": _numpy_tree(grads),
-            "batch_stats": _numpy_tree(mut["batch_stats"])})
-
-    loss, ref = run(params, batch)
-    spread = {"loss": 0.0}
-    for p2, b2 in ((params, dict(batch, x=_jitter(batch["x"], 1))),
-                   (_jitter(params, 2), batch)):
-        loss2, ref2 = run(p2, b2)
-        spread["loss"] = max(spread["loss"], abs(loss2 - loss))
-        for k, v in ref2.items():
-            spread[k] = max(spread.get(k, 0.0),
-                            float(np.abs(v - ref[k]).max()))
-    return dict(params=params, stats=stats, batch=batch, loss=loss,
-                ref=ref, spread=spread)
+    run = jax_step(f, stats)
+    ref, spread = pu.float64_reference(run, (params, batch), (
+        (params, dict(batch, x=pu._jitter(batch["x"], 1))),
+        (pu._jitter(params, 2), batch)))
+    return dict(params=params, stats=stats, batch=batch, ref=ref,
+                spread=spread, j32=run(params, batch, np.float32))
 
 
-def _stage1_model(stage1):
+def _stage1_model(stage1, dtype=torch.float32):
     tcfg = dataclasses.replace(pu.torch_cfg().pointnet2, dropout=False)
     model = nocs.PointNet2NOCS(tcfg)
     model.load_state_dict(state_dict_from_jax(
         {"params": stage1["params"], "batch_stats": stage1["stats"]}))
-    return model.train()
+    return model.to(dtype).train()
+
+
+def _in_dtype(dtype: str):
+    """The port's side of a step in `dtype`: pu.port_float64 in float64."""
+    return (pu.port_float64() if dtype == "float64"
+            else contextlib.nullcontext())
 
 
 def _pooled_near_ties(module, args, rel=1e-4) -> torch.Tensor:
@@ -429,30 +458,29 @@ def _module_inputs(name: str) -> tuple:
             }[name]
 
 
-@pytest.mark.parametrize("name", STAGE1_MODULES)
-def test_stage1_module_train_vjp_matches_jax(stage1, name):
-    """Each stage-1 module in training mode with the tiny configuration's
-    weights, on seeded inputs (_module_inputs) and a seeded output
-    cotangent, 0 at the SA's pooled near-ties (where the max's gradient
-    jumps between two slots at rounding level): the output and the
-    running statistics within 1e-5 of their largest entry, every
-    parameter's and input's gradient within 1e-4 of that tensor's largest
-    JAX gradient; or within SPREAD_FACTOR times JAX's own change when the
-    module's inputs, or its weights, are jittered, where that is larger.
-    The spread covers a BatchNorm channel that is nearly dead after its
-    ReLU (a few entries above 0 in a batch of two clouds): its gradient
-    moves with each entry that rounding lifts over the ReLU's 0."""
+# the arguments of each stage-1 module that carry a gradient: features,
+# and the FP's skip
+MODULE_DIFF = {"sa1": [0], "sa2": [0], "sa3": [0], "fp3": [0, 2],
+               "fp2": [0, 2], "fp1": [0, 2]}
+_MODULE_REFS = {}
+
+
+def _module_reference(stage1, name: str) -> dict:
+    """One stage-1 module's seeded inputs, output cotangent (0 at the SA's
+    pooled near-ties of the port's float32 forward, where the max's
+    gradient jumps between two slots at rounding level), JAX's VJP in
+    float64, its spread and JAX's float32 VJP; computed once a module."""
+    if name in _MODULE_REFS:
+        return _MODULE_REFS[name]
     from garmentnets_tpu.models import pointnet2 as jax_p2
-    jmods = {
-        "sa1": jax_p2.SAModule(0.5, pu.SA1_R, (6, 64, 64, 128)),
-        "sa2": jax_p2.SAModule(0.25, pu.SA2_R, (131, 128, 128, 256)),
-        "sa3": jax_p2.GlobalSAModule((259, 256, 512, 1024)),
-        "fp3": jax_p2.FPModule(1, (1280, 256, 256)),
-        "fp2": jax_p2.FPModule(3, (384, 256, 128)),
-        "fp1": jax_p2.FPModule(3, (131, 128, 128, 128))}
-    # the arguments that carry a gradient: features, and the FP's skip
-    diff = {"sa1": [0], "sa2": [0], "sa3": [0], "fp3": [0, 2],
-            "fp2": [0, 2], "fp1": [0, 2]}[name]
+    jmod = {
+        "sa1": lambda: jax_p2.SAModule(0.5, pu.SA1_R, (6, 64, 64, 128)),
+        "sa2": lambda: jax_p2.SAModule(0.25, pu.SA2_R, (131, 128, 128, 256)),
+        "sa3": lambda: jax_p2.GlobalSAModule((259, 256, 512, 1024)),
+        "fp3": lambda: jax_p2.FPModule(1, (1280, 256, 256)),
+        "fp2": lambda: jax_p2.FPModule(3, (384, 256, 128)),
+        "fp1": lambda: jax_p2.FPModule(3, (131, 128, 128, 128))}[name]()
+    diff = MODULE_DIFF[name]
     args = list(_module_inputs(name))
     module = getattr(_stage1_model(stage1), f"{name}_module")
     targs = [torch.from_numpy(a.copy()) for a in args]
@@ -460,125 +488,165 @@ def test_stage1_module_train_vjp_matches_jax(stage1, name):
         *module(*[t.clone() for t in targs])[0].shape).astype(np.float32)
     if name in ("sa1", "sa2"):
         ct[_pooled_near_ties(module, targs).numpy()] = 0.0
-    module = getattr(_stage1_model(stage1), f"{name}_module")
 
-    def vjp(args, params):
+    def vjp(args, params, dtype):
+        args = [np.asarray(a, dtype) for a in args]
+        stats = pu.as_dtype(stage1["stats"][name], dtype)
+
         def f(p, *d):
             a = list(args)
             for i, v in zip(diff, d):
                 a[i] = v
-            o, mut = jmods[name].apply(
-                {"params": p, "batch_stats": stage1["stats"][name]}, *a,
-                train=True, mutable=["batch_stats"])
+            o, mut = jmod.apply({"params": p, "batch_stats": stats}, *a,
+                                train=True, mutable=["batch_stats"])
             return o[0], mut
 
-        out, vjp_fn, mut = jax.vjp(f, params, *[args[i] for i in diff],
-                                   has_aux=True)
-        g = vjp_fn(jnp.asarray(ct))
+        out, vjp_fn, mut = jax.vjp(f, pu.as_dtype(params, dtype),
+                                   *[args[i] for i in diff], has_aux=True)
+        g = vjp_fn(jnp.asarray(ct, dtype))
         res = {"out": np.asarray(out)}
-        weights._put_mlp(res, "m", _numpy_tree(g[0]["mlp"]),
-                         _numpy_tree(mut["batch_stats"]["mlp"]))
+        weights._put_mlp(res, "m", pu._numpy_tree(g[0]["mlp"]),
+                         pu._numpy_tree(mut["batch_stats"]["mlp"]))
         res.update({f"in{i}": np.asarray(g[1 + k])
                     for k, i in enumerate(diff)})
         return res
 
     params = stage1["params"][name]
-    ref = vjp(args, params)
-    spread = dict.fromkeys(ref, 0.0)
-    for moved in (vjp([_jitter(a, 1) if i in diff else a
-                       for i, a in enumerate(args)], params),
-                  vjp(args, _jitter(params, 2))):
-        spread = {k: max(spread[k], float(np.abs(moved[k] - v).max()))
-                  for k, v in ref.items()}
+    ref, spread = pu.float64_reference(vjp, (args, params), (
+        ([pu._jitter(a, 1) if i in diff else a for i, a in enumerate(args)],
+         params), (args, pu._jitter(params, 2))))
+    _MODULE_REFS[name] = dict(args=args, ct=ct, ref=ref, spread=spread,
+                              j32=vjp(args, params, np.float32))
+    return _MODULE_REFS[name]
 
+
+@pytest.mark.parametrize("name,dtype", [
+    (n, d) for d in pu.DTYPES for n in STAGE1_MODULES],
+    ids=[n + ("" if d == "float32" else f"-{d}")
+         for d in pu.DTYPES for n in STAGE1_MODULES])
+def test_stage1_module_train_vjp_matches_jax(stage1, name, dtype):
+    """Each stage-1 module in training mode with the tiny configuration's
+    weights, on seeded inputs (_module_inputs) and a seeded output
+    cotangent (_module_reference), held to JAX's VJP in float64: in
+    float64 every tensor within pu.F64_REL of its largest entry; in
+    float32 the output and the running statistics within STAT_REL of
+    their largest entry, every parameter's and input's gradient within
+    GRAD_REL; or within SPREAD_FACTOR times the float64 VJP's own change
+    when the module's inputs, or its weights, are jittered, where that is
+    larger. The spread covers a BatchNorm channel that is nearly dead
+    after its ReLU (a few entries above 0 in a batch of two clouds): its
+    gradient moves with each entry that a 1e-6 change lifts over the
+    ReLU's 0."""
+    r = _module_reference(stage1, name)
+    diff = MODULE_DIFF[name]
+    dt = getattr(torch, dtype)
+    module = getattr(_stage1_model(stage1, dt), f"{name}_module")
+    targs = [torch.from_numpy(a.copy()).to(dt) for a in r["args"]]
     for i in diff:
         targs[i].requires_grad_(True)
-    out = module(*targs)[0]
-    (out * torch.from_numpy(ct)).sum().backward()
-    got = {"out": out.detach().numpy()}
+    with _in_dtype(dtype):
+        out = module(*targs)[0]
+    (out * torch.from_numpy(r["ct"]).to(dt)).sum().backward()
+    got = {"out": out.detach().double().numpy()}
     mlp = module.conv.local_nn if name in ("sa1", "sa2") else module.nn
-    got.update({"m." + k: p.grad.numpy()
+    got.update({"m." + k: p.grad.double().numpy()
                 for k, p in mlp.named_parameters()})
-    got.update({"m." + k: b.numpy() for k, b in mlp.named_buffers()
+    got.update({"m." + k: b.double().numpy() for k, b in mlp.named_buffers()
                 if not k.endswith("num_batches_tracked")})
-    got.update({f"in{i}": targs[i].grad.numpy() for i in diff})
-    assert set(got) <= set(ref)
-    for k, v in got.items():
-        rel = 1e-4 if k.startswith("in") or k.endswith(
-            ("weight", "bias")) else 1e-5
-        np.testing.assert_allclose(v, ref[k], rtol=0, err_msg=k,
-                                   atol=_atol(ref[k], spread[k], rel))
+    got.update({f"in{i}": targs[i].grad.double().numpy() for i in diff})
+    pu.check_against_float64(got, r["ref"], r["spread"], dtype,
+                             f"stage-1 module {name}", r["j32"])
 
 
-def test_stage1_train_step_matches_jax(stage1):
-    """The whole stage-1 step end to end: the loss within rtol 1e-5, every
-    parameter's gradient within 1e-4 of its largest JAX entry, the running
-    statistics within 1e-5 of their largest entry; or within
-    SPREAD_FACTOR times JAX's own change when the input colours or the
-    weights are jittered, where that is larger. A train-mode step at B=2
-    is ill-conditioned: FP3's BatchNorm normalizes the two clouds' global
-    features, and pooled maxima have near-ties."""
-    model = _stage1_model(stage1)
-    tb = {k: _t(v) for k, v in stage1["batch"].items()}
-    loss = nocs.get_metrics(model.cfg, model(tb["x"], tb["pos"]), tb)[0][
-        "loss"]
+@pytest.mark.parametrize("dtype", pu.DTYPES)
+def test_stage1_train_step_matches_jax(stage1, dtype):
+    """The whole stage-1 step end to end, held to JAX's step in float64:
+    in float64 the loss, every gradient and every running statistic
+    within pu.F64_REL of the tensor's largest entry; in float32 the loss
+    within rtol LOSS_REL, every gradient within GRAD_REL of its largest
+    entry, the running statistics within STAT_REL; or within
+    SPREAD_FACTOR times the float64 step's own change when the input
+    colours or the weights are jittered, where that is larger. A
+    train-mode step at B=2 is ill-conditioned: FP3's BatchNorm normalizes
+    the two clouds' global features, and pooled maxima have near-ties."""
+    pu.check_against_float64(port_stage1_step(stage1, dtype),
+                             stage1["ref"], stage1["spread"], dtype,
+                             "stage-1 step", stage1["j32"])
+
+
+def port_stage1_step(stage1, dtype: str, detach: str = None) -> dict:
+    """The port's stage-1 step in `dtype` on stage1's batch, in
+    _port_step_values' layout; the parameter named `detach`, where given,
+    is cut off from the graph (a planted fault)."""
+    dt = getattr(torch, dtype)
+    model = _stage1_model(stage1, dt)
+    if detach:
+        model.get_parameter(detach).requires_grad_(False)
+    tb = {k: _t(v).to(dt) for k, v in stage1["batch"].items()}
+    with _in_dtype(dtype):
+        loss = nocs.get_metrics(model.cfg, model(tb["x"], tb["pos"]),
+                                tb)[0]["loss"]
     loss.backward()
-    ref, spread = stage1["ref"], stage1["spread"]
-    assert abs(float(loss.detach()) - stage1["loss"]) <= max(
-        1e-5 * abs(stage1["loss"]), SPREAD_FACTOR * spread["loss"])
-    for name, p in model.named_parameters():
-        np.testing.assert_allclose(p.grad.numpy(), ref[name], rtol=0,
-                                   err_msg=name, atol=_atol(
-                                       ref[name], spread[name], 1e-4))
-    for name, b in model.named_buffers():
-        if name.endswith("running_mean") or name.endswith("running_var"):
-            np.testing.assert_allclose(b.numpy(), ref[name], rtol=0,
-                                       err_msg=name, atol=_atol(
-                                           ref[name], spread[name], 1e-5))
+    return _port_step_values(model, loss)
 
 
-def test_stage2_train_step_matches_jax(variables):
-    """One pipeline step: the JAX stage 1 gives zero gradients and keeps
-    its statistics; the port's takes no gradient, and its weights and
-    statistics stay bit-equal through make_train_fns' Adam step."""
+def _stage2_batch() -> dict:
     rng = np.random.RandomState(12)
     x = pu.inputs()
     M = 23
-    batch = {"x": x["x"], "pos": x["pos"],
-             "volume_query_points": rng.rand(pu.B, M, 3).astype(np.float32),
-             "gt_volume_value": rng.rand(pu.B, M).astype(np.float32),
-             "surf_query_points": rng.rand(pu.B, M, 3).astype(np.float32),
-             "gt_sim_points": rng.randn(pu.B, M, 3).astype(np.float32),
-             "_valid_mask": np.ones(pu.B, np.float32)}
+    return {"x": x["x"], "pos": x["pos"],
+            "volume_query_points": rng.rand(pu.B, M, 3).astype(np.float32),
+            "gt_volume_value": rng.rand(pu.B, M).astype(np.float32),
+            "surf_query_points": rng.rand(pu.B, M, 3).astype(np.float32),
+            "gt_sim_points": rng.randn(pu.B, M, 3).astype(np.float32),
+            "_valid_mask": np.ones(pu.B, np.float32)}
+
+
+@pytest.fixture(scope="module")
+def stage2(variables):
+    """JAX's pipeline step (the frozen stage 1 in eval mode) on
+    _stage2_batch() in float64, its spread under a 1e-6 jitter of the
+    input colours or of the weights, and JAX's float32 step."""
+    batch = _stage2_batch()
     jcfg = pu.jax_cfg()
     jm = jax_pipe.ConvImplicitWNFPipeline(jcfg)
 
-    def f(params, batch):
-        out, mut = jm.apply({"params": params,
-                             "batch_stats": variables["batch_stats"]},
+    def f(params, stats, batch):
+        out, mut = jm.apply({"params": params, "batch_stats": stats},
                             batch, train=True, mutable=["batch_stats"])
         return jax_pipe.pipeline_loss(jcfg, out, batch)["loss"], mut
 
-    (ref_loss, mut), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
-        variables["params"], {k: jnp.asarray(v) for k, v in batch.items()})
+    run = jax_step(f, variables["batch_stats"])
+    params = variables["params"]
+    ref, spread = pu.float64_reference(run, (params, batch), (
+        (params, dict(batch, x=pu._jitter(batch["x"], 1))),
+        (pu._jitter(params, 2), batch)))
+    return dict(batch=batch, ref=ref, spread=spread,
+                j32=run(params, batch, np.float32))
 
+
+def port_stage2_step(variables, batch: dict, dtype: str) -> tuple:
+    """One pipeline step of the port in `dtype` through make_train_fns
+    (Adam at 1e-3, the stage 1 frozen) -> (the model after the step, the
+    step's values: loss, the gradients before Adam, the updated running
+    statistics; a snapshot of the stage 1's state before the step)."""
+    dt = getattr(torch, dtype)
     tcfg = pu.torch_cfg()
     model = pipe.ConvImplicitWNFPipeline(tcfg)
     model.load_state_dict(state_dict_from_jax(variables))
+    model.to(dt)
     model.pointnet2_nocs.requires_grad_(False)
     stage1 = {k: v.clone() for k, v in
               model.pointnet2_nocs.state_dict().items()}
     optimizer = make_adam(model, 1e-3)
     out = {}
 
-    def apply_fn(b, gen):
-        return model(b)
-
     def loss_fn(o, b):
         out["loss"] = pipe.pipeline_loss(tcfg, o, b)["loss"]
         return {"loss": out["loss"]}
 
-    train_step, _ = make_train_fns(model, apply_fn, loss_fn, optimizer)
+    train_step, _ = make_train_fns(model, lambda b, gen: model(b), loss_fn,
+                                   optimizer)
     snapshot = {}
     orig_step = optimizer.step
 
@@ -589,15 +657,123 @@ def test_stage2_train_step_matches_jax(variables):
         return orig_step()
 
     optimizer.step = step_after_snapshot
-    train_step({k: _t(v) for k, v in batch.items()})
-    assert not model.pointnet2_nocs.training and model.volume_agg.training
+    with _in_dtype(dtype):
+        train_step({k: _t(v).to(dt) for k, v in batch.items()})
     for name, p in model.named_parameters():
         p.grad = snapshot["grads"][name]
-    n = _compare_step(model, ref_loss, out["loss"], _numpy_tree(grads),
-                      _numpy_tree(mut["batch_stats"]))
-    assert n == len([p for p in model.parameters() if p.requires_grad]) > 0
+    return model, _port_step_values(model, out["loss"]), stage1
+
+
+@pytest.mark.parametrize("dtype", pu.DTYPES)
+def test_stage2_train_step_matches_jax(variables, stage2, dtype):
+    """One pipeline step held to JAX's step in float64 (the bars of
+    test_stage1_train_step_matches_jax): the JAX stage 1 gives zero
+    gradients and keeps its statistics; the port's takes no gradient,
+    and its weights and statistics stay bit-equal through
+    make_train_fns' Adam step."""
+    model, got, stage1 = port_stage2_step(variables, stage2["batch"], dtype)
+    assert not model.pointnet2_nocs.training and model.volume_agg.training
+    n_grads = len([p for p in model.parameters() if p.requires_grad])
+    assert n_grads > 0 and n_grads == len(
+        [k for k in got if k in dict(model.named_parameters())])
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            assert not p.requires_grad and not stage2["ref"][name].any()
+    pu.check_against_float64(got, stage2["ref"], stage2["spread"], dtype,
+                             "stage-2 step", stage2["j32"],
+                             frozen="pointnet2_nocs.")
     for k, v in model.pointnet2_nocs.state_dict().items():
         assert torch.equal(v, stage1[k]), k
+
+
+def _unbiased_variance_bn(bn, x, mask=None, group=None):
+    """models/mlp.train_batch_norm (one process) with a planted fault: the
+    normalization divides by the unbiased variance."""
+    dims = tuple(range(x.dim() - 1))
+    w = (torch.ones_like(x[..., :1]) if mask is None
+         else mask.to(x.dtype)[..., None])
+    n = torch.clamp(w.sum(dims)[0], min=1.0)
+    mean = (x * w).sum(dims) / n
+    unbiased = (((x - mean) ** 2) * w).sum(dims) / torch.clamp(n - 1.0,
+                                                              min=1.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * unbiased)
+    return (x - mean) * (bn.weight / torch.sqrt(unbiased + bn.eps)) + bn.bias
+
+
+def _eps_bn(train_batch_norm):
+    """train_batch_norm with a planted fault: eps 1e-3, not 1e-5."""
+    def bn_fn(bn, x, mask=None, group=None):
+        saved, bn.eps = bn.eps, 1e-3
+        try:
+            return train_batch_norm(bn, x, mask, group)
+        finally:
+            bn.eps = saved
+    return bn_fn
+
+
+def _moved_scatter_argmax(scatter_to_grid):
+    """ops/scatter.scatter_to_grid with a planted fault: in the first cell
+    of batch row 0 that holds two or more points, every channel takes its
+    smallest point's value instead of its largest (the argmax moved to
+    another point)."""
+    def scatter(features, flat_idx, num_cells, reduce="max"):
+        out = scatter_to_grid(features, flat_idx, num_cells, reduce)
+        counts = torch.bincount(flat_idx[0], minlength=num_cells)
+        cell = int(torch.nonzero(counts >= 2)[0, 0])
+        points = torch.nonzero(flat_idx[0] == cell)[:, 0]
+        out = out.clone()
+        out[0, cell] = features[0, points].amin(0)
+        return out
+    return scatter
+
+
+@pytest.mark.parametrize("fault", [
+    "unbiased_variance-False", "unbiased_variance-True", "eps_1e-3-False",
+    "eps_1e-3-True", "scatter_argmax", "detached_parameter-float32",
+    "detached_parameter-float64"])
+def test_planted_faults_fail_the_float32_bars(request, monkeypatch, fault):
+    """The float32 bars of the steps above still catch real faults: the
+    port's masked BatchNorm (models/mlp.py patched in this test only)
+    with the unbiased variance in its normalization, or with eps 1e-3,
+    masked or not, fails test_masked_batch_norm_train_step_matches_jax's
+    bar in some tensor; the stage-2 step with one scatter-max cell's
+    argmax moved (models/pipeline.py's scatter_to_grid patched) fails
+    test_stage2_train_step_matches_jax's; a stage-1 parameter cut off
+    from the graph (no gradient) fails test_stage1_train_step_matches_jax
+    in float32 and in float64."""
+    from garmentnets_tpu_torch.models import mlp as port_mlp
+    if fault.startswith("detached_parameter"):
+        stage1, dtype = request.getfixturevalue("stage1"), fault[19:]
+        name = "fp3_module.nn.0.0.weight"
+        got = port_stage1_step(stage1, dtype, detach=name)
+        assert name not in got
+        with pytest.raises(AssertionError, match=name):
+            pu.check_against_float64(got, stage1["ref"], stage1["spread"],
+                                     dtype, f"stage-1 step, {name} cut off")
+        return
+    if fault == "scatter_argmax":
+        stage2 = request.getfixturevalue("stage2")
+        monkeypatch.setattr(pipe, "scatter_to_grid",
+                            _moved_scatter_argmax(pipe.scatter_to_grid))
+        _, got, _ = port_stage2_step(request.getfixturevalue("variables"),
+                                     stage2["batch"], "float32")
+        with pytest.raises(AssertionError):
+            pu.check_against_float64(got, stage2["ref"], stage2["spread"],
+                                     "float32", "stage-2 step, argmax moved",
+                                     frozen="pointnet2_nocs.")
+        return
+    kind, masked = fault.rsplit("-", 1)
+    monkeypatch.setattr(port_mlp, "train_batch_norm",
+                        _unbiased_variance_bn if kind == "unbiased_variance"
+                        else _eps_bn(port_mlp.train_batch_norm))
+    case, ref, spread, _ = _bn_reference(masked == "True")
+    got = _port_bn_step(case, torch.float32)
+    with pytest.raises(AssertionError):
+        pu.check_against_float64(got, ref, spread, "float32",
+                                 f"masked BN with {fault}", rel=BN_REL)
 
 
 def test_adam_matches_optax():

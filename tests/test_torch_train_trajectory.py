@@ -52,7 +52,6 @@ parameters within 1e-7 absolute plus 1e-7 relative
 masks JAX draws, put in place of the port's own draws, matches JAX's
 float64 step within 1e-6 (test_carried_step_with_jax_dropout_masks).
 """
-import contextlib
 import dataclasses
 import pathlib
 import sys
@@ -67,12 +66,10 @@ import jax.numpy as jnp
 import optax
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-from test_torch_train import (  # noqa: E402
-    SPREAD_FACTOR, _atol, _jitter, _numpy_tree)
+from torch_port_util import (  # noqa: E402
+    SPREAD_FACTOR, _atol, _jitter, _numpy_tree, jax_float64)
 
 from garmentnets_tpu.harness import training as jax_training  # noqa: E402
-from garmentnets_tpu.models import mlp as jax_mlp  # noqa: E402
-from garmentnets_tpu.models import pointnet2 as jax_p2  # noqa: E402
 from garmentnets_tpu.models import pointnet2_nocs as jax_nocs  # noqa: E402
 from chip_smoke import (  # noqa: E402
     B, CARRY_REL, TRAJ_SEEDS as SEEDS, TRAJ_WINDOW as WINDOW, carried_state,
@@ -277,31 +274,6 @@ def test_chip_smoke_carried_step_in_float64(tmp_path):
 # ---------------------------------------------------------------------------
 STAGE1_MODULES = ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")
 F64_AGREE = 1e-6    # the two float64 steps, of each tensor's largest entry
-
-
-@contextlib.contextmanager
-def jax_float64():
-    """JAX's stage-1 step in float64 throughout, the JAX package unedited:
-    x64 on; MaskedBatchNorm's float32 casts (garmentnets_tpu/models/mlp.py)
-    read as float64, through a view of jax.numpy put in that module's
-    place; FPS and the ball query choose on the positions rounded to
-    float32, as port_step's float64 step does, so that both packages'
-    float64 steps pick the neighbours of their float32 steps."""
-    view = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
-                                    if not k.startswith("__")})
-    view.float32 = jnp.float64
-    saved = (jax_mlp.jnp, jax_p2.furthest_point_sampling, jax_p2.ball_query)
-    fps, bq = saved[1:]
-    jax_mlp.jnp = view
-    jax_p2.furthest_point_sampling = lambda pos, n, **kw: fps(
-        pos.astype(jnp.float32), n, **kw)
-    jax_p2.ball_query = lambda p, c, r, **kw: bq(
-        p.astype(jnp.float32), c.astype(jnp.float32), r, **kw)
-    try:
-        with jax.enable_x64(True):
-            yield
-    finally:
-        jax_mlp.jnp, jax_p2.furthest_point_sampling, jax_p2.ball_query = saved
 
 
 def jax_step_fn(study: Study):

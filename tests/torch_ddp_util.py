@@ -10,7 +10,10 @@ parallel/mesh.launch_ranks, and each rank writes what it saw into <dir>.
   rank takes its rows (harness/training.batch_to_device), runs the steps
   of make_train_fns over the group and writes rank<r>.pt: the first
   step's global loss, the summed gradients and the running statistics
-  after it, and the parameters after every step.
+  after it, this rank's share of that loss in the step's dtype, and the
+  parameters after every step. Then, from the same
+  weights, one step in float64 (the model, the rows and the step;
+  torch_port_util.port_float64), written as rank<r>_float64.pt.
 - `shard`: <dir>/inputs.pt holds datamodule kwargs with
   shard_by_process=True, a stage-2 configuration and its weights; each
   rank records the dataset indices its train loader reads over one epoch,
@@ -36,6 +39,7 @@ from garmentnets_tpu_torch.harness.training import (
 from garmentnets_tpu_torch.models import pipeline as pipe
 from garmentnets_tpu_torch.models import pointnet2_nocs as nocs
 from garmentnets_tpu_torch.parallel.mesh import launch_ranks
+from torch_port_util import port_float64
 
 WORLD = 2
 LR = 1e-3
@@ -44,6 +48,17 @@ LR = 1e-3
 def step_worker(out_dir: str) -> None:
     out_dir = pathlib.Path(out_dir)
     inp = torch.load(out_dir / "inputs.pt", weights_only=False)
+    rank = dist.get_rank()
+    out = run_steps(inp, torch.float32, inp["steps"])
+    torch.save(out, out_dir / f"rank{rank}.pt")
+    with port_float64():
+        out = run_steps(inp, torch.float64, 1)
+    torch.save(out, out_dir / f"rank{rank}_float64.pt")
+
+
+def run_steps(inp: dict, dtype, steps: int) -> dict:
+    """`steps` steps of the `steps` scenario's model in `dtype` on this
+    rank's rows."""
     rank, group = dist.get_rank(), dist.group.WORLD
     cfg = inp["cfg"]
     if inp["kind"] == "stage2":
@@ -54,7 +69,7 @@ def step_worker(out_dir: str) -> None:
         def apply_fn(b, gen):
             return model(b)
 
-        def loss_fn(o, b):
+        def metrics_fn(o, b):
             return pipe.pipeline_loss(cfg, o, b, group)
     else:
         model = nocs.PointNet2NOCS(cfg)
@@ -63,9 +78,19 @@ def step_worker(out_dir: str) -> None:
         def apply_fn(b, gen):
             return model(b["x"], b["pos"], generator=gen)
 
-        def loss_fn(o, b):
+        def metrics_fn(o, b):
             return nocs.get_metrics(cfg, o, b, group)[0]
 
+    shares = []
+
+    def loss_fn(o, b):
+        # this rank's share of the global loss, in the step's dtype (the
+        # step returns the global metrics in float32)
+        metrics = metrics_fn(o, b)
+        shares.append(float(metrics["loss"].detach()))
+        return metrics
+
+    model.to(dtype)
     optimizer = make_adam(model, LR)
     grads = {}
     step = optimizer.step
@@ -79,17 +104,19 @@ def step_worker(out_dir: str) -> None:
     optimizer.step = step_after_snapshot
     train_step, _ = make_train_fns(model, apply_fn, loss_fn, optimizer,
                                    group)
-    rows = batch_to_device(inp["batch"], "cpu", WORLD, rank)
+    rows = {k: v.to(dtype) if v.is_floating_point() else v for k, v in
+            batch_to_device(inp["batch"], "cpu", WORLD, rank).items()}
     out = {"rows": {k: v.clone() for k, v in rows.items()}, "params": []}
-    for i in range(inp["steps"]):
+    for i in range(steps):
         metrics = train_step(rows)
         if i == 0:
             out["loss"] = float(metrics["loss"])
+            out["loss_share"] = shares[0]
             out["grads"] = grads
             out["stats"] = {n: b.clone() for n, b in model.named_buffers()}
         out["params"].append({n: p.detach().clone()
                               for n, p in model.named_parameters()})
-    torch.save(out, out_dir / f"rank{rank}.pt")
+    return out
 
 
 def shard_worker(out_dir: str) -> None:
