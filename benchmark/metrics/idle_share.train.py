@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel or copy ran on the
+card."""
+
+
+def read(ctx):
+    t = getattr(ctx, "trace_data", None)
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
