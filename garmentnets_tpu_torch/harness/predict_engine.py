@@ -67,10 +67,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from garmentnets_tpu_torch.core.device import (
     full_f32, resolve_device, to_device)
+from garmentnets_tpu_torch.core.trace import span
 from garmentnets_tpu_torch.models.pipeline import (
     ConvImplicitWNFPipeline, PipelineConfig)
 from garmentnets_tpu_torch.ops.dense_decode import (
@@ -366,21 +366,20 @@ class PredictEngine:
         with _on(dev):
             x = to_device(x, dev, torch.float32)
             pos = to_device(pos, dev, torch.float32)
-            # the encode/* ranges name the stages in a torch.profiler trace
-            # (tools/profile_encode.py); without a profiler they cost a few
-            # us
-            with record_function("encode/stage1_pointnet2"):
+            # the encode/* spans name the stages in a torch.profiler trace
+            # (tools/profile_encode.py)
+            with span("encode/stage1_pointnet2"):
                 p2 = rep.model.pointnet2_forward(x, pos)
                 if self.cfg.volume_task_space:
                     aabb = rep.task_aabb.expand(pos.shape[0], 2, 3)
                     p2 = rep.model.apply_volume_task_space(pos, aabb, p2)
-            with record_function("encode/aggregate_unet3d"):
+            with span("encode/aggregate_unet3d"):
                 feature_volume = rep.model.unet3d_forward(p2["nocs_data"])
-            with record_function("encode/dense_decode"):
+            with span("encode/dense_decode"):
                 wnf = self._decode(feature_volume, list(row))
-            with record_function("encode/ggm"):
+            with span("encode/ggm"):
                 ggm = gaussian_gradient_magnitude(wnf, self.gradient_sigma)
-            with record_function("encode/bricks_and_pages"):
+            with span("encode/bricks_and_pages"):
                 base, vals, counts = extract_active_bricks(
                     wnf, self.iso_level, self.brick_cap,
                     with_masks=self.cube_masks)

@@ -3,7 +3,10 @@
 
 - make_train_fns: the train step (forward, loss, backward, Adam update and
   the BatchNorm running statistics, in full f32 with TF32 off) and the
-  eval step (eval mode, no gradient);
+  eval step (eval mode, no gradient). Under a profiler the train step
+  names its phases `train/forward`, `train/backward`, `train/all_reduce`
+  and `train/optimizer` and times each on the card (core/trace.py), and
+  batch_to_device / own_rows_to_device name theirs `train/batch_to_device`;
 - MetricFlusher: step metrics stay on the device and go to the host in one
   stacked copy every 32 steps, not with one synchronization a step;
 - Trainer.fit: the epoch loop with `_valid_mask` in every batch,
@@ -48,6 +51,7 @@ from garmentnets_tpu_torch.core.checkpoint import (
 from garmentnets_tpu_torch.core.device import (
     full_f32, resolve_device, to_device)
 from garmentnets_tpu_torch.core.logging import NullLogger, make_logger
+from garmentnets_tpu_torch.core.trace import span
 from garmentnets_tpu_torch.models.mlp import set_batch_norm_group
 from garmentnets_tpu_torch.parallel.mesh import (
     init_distributed, launch_ranks, pad_batch_to, shard_rows)
@@ -149,13 +153,18 @@ def make_train_fns(model: torch.nn.Module, apply_fn: Callable,
 
     def train_step(batch: dict, generator=None) -> dict:
         model.train()
+        dev = params[0].device if params else None
         with full_f32():
-            metrics = loss_fn(apply_fn(batch, generator), batch)
-            optimizer.zero_grad(set_to_none=True)
-            metrics["loss"].backward()
+            with span("train/forward", dev):
+                metrics = loss_fn(apply_fn(batch, generator), batch)
+            with span("train/backward", dev):
+                optimizer.zero_grad(set_to_none=True)
+                metrics["loss"].backward()
             if group is not None:
-                all_reduce_grads(params, group)
-            optimizer.step()
+                with span("train/all_reduce", dev):
+                    all_reduce_grads(params, group)
+            with span("train/optimizer", dev):
+                optimizer.step()
         return global_metrics({k: v.detach() for k, v in metrics.items()},
                               group)
 
@@ -214,10 +223,11 @@ def batch_to_device(batch: dict, device, world_size: int = 1,
     on `device`: the batch padded to a multiple of world_size by repeating
     row 0, then rank's contiguous share of the rows, `_valid_mask` 0 on
     the padded ones."""
-    b = len(batch["x"])
-    padded = _masked(batch, -(-b // world_size) * world_size)
-    mine = shard_rows(padded, world_size, rank)
-    return {k: to_device(v, device) for k, v in mine.items()}
+    with span("train/batch_to_device"):
+        b = len(batch["x"])
+        padded = _masked(batch, -(-b // world_size) * world_size)
+        mine = shard_rows(padded, world_size, rank)
+        return {k: to_device(v, device) for k, v in mine.items()}
 
 
 def own_rows_to_device(batch: dict, device, group,
@@ -229,17 +239,18 @@ def own_rows_to_device(batch: dict, device, group,
     by one all-reduce of the ranks' row counts, with `_valid_mask` 0 on
     the padding. even: every rank's batch has as many rows as this one
     (a drop_last loader's), so no count is exchanged."""
-    b = len(batch["x"])
-    world = dist.get_world_size(group)
-    if even:
-        rows, total = b, world * b
-    else:
-        counts = torch.zeros(world, dtype=torch.int64, device=device)
-        counts[dist.get_rank(group)] = b
-        dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
-        rows, total = int(counts.max()), int(counts.sum())
-    mine = _masked(batch, rows)
-    return {k: to_device(v, device) for k, v in mine.items()}, total
+    with span("train/batch_to_device"):
+        b = len(batch["x"])
+        world = dist.get_world_size(group)
+        if even:
+            rows, total = b, world * b
+        else:
+            counts = torch.zeros(world, dtype=torch.int64, device=device)
+            counts[dist.get_rank(group)] = b
+            dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+            rows, total = int(counts.max()), int(counts.sum())
+        mine = _masked(batch, rows)
+        return {k: to_device(v, device) for k, v in mine.items()}, total
 
 
 class Trainer:

@@ -1,8 +1,21 @@
-"""Where a train step of each stage spends its time on the card.
+"""Where a train step of each stage spends its time, read from the
+program's own step-phase spans (core/trace.py).
 
     python -m garmentnets_tpu_torch.tools.profile_train [--steps 3]
     python -m garmentnets_tpu_torch.tools.profile_train --loader-split \
         [--steps 40]
+    torchrun --nproc-per-node 2 -m garmentnets_tpu_torch.tools.profile_train
+
+The steps are harness/training.make_train_fns' train step fed by
+batch_to_device, as the trainer runs them. Under torch.profiler they name
+their phases `train/batch_to_device`, `train/forward` (forward and loss),
+`train/backward` (zero_grad and the backward), `train/all_reduce` (under
+a process group) and `train/optimizer` (Adam), and time each but the copy
+on the card by CUDA events in stream order (core.trace.device_ms). For
+each phase the tool prints its host ms a step (the span on the host) and
+its device ms a step. Under torchrun (one card a rank, nccl) every rank
+steps its own copy of the batch in one process group, so the step's
+gradient all-reduce shows as `train/all_reduce`.
 
 Writes a small synthetic dataset with the port's generator (one garment
 instance, 24 grips, 4 views x 1500 points, a 32^3 GT volume) into a
@@ -10,53 +23,55 @@ temporary directory, takes one batch per stage at the shipped widths
 (stage 1: B=8, 6000 points, PointNet2NOCSConfig(), dropout on; stage 2:
 B=24, 6000 volume and 6000 surface queries, PipelineConfig()), builds
 each model from flax's default initializers (init_like_jax_), and after
-two warm-up train steps (forward, loss, backward, Adam, as
-harness/training.make_train_fns runs them, in full f32) times --steps
-steps with CUDA events and traces --steps more with torch.profiler.
-Prints per stage:
-  - ms per step of each phase (forward and loss, backward, optimizer) by
-    CUDA events over --steps more untraced steps;
-  - the device span of the loss and of each top-level module of the
-    forward (a record_function range each), ms per step;
+two warm-up steps traces --steps steps. Prints per stage:
+  - host and device ms a step of each phase;
+  - the device span of each top-level module of the forward (a
+    record_function range each, put on by this tool), ms per step;
   - device time by kernel name per step, and the device busy share
     (kernel time over the step's wall time with the profiler on);
   - one JSON line with all of it.
 
 With --loader-split it takes stage 1 instead as tools/e2e_synthetic.py's
 acceptance run does (its dataset of 4 instances x 3 grips, its dataset
-arguments, 6000 points, B=8, lr 1e-3, a Loader of 2 worker threads, each
-batch copied to the card in the step) and splits each of 10 + --steps
-steps by CUDA events and the host clock at five marks: before the batch's
-host-to-device copy, after it, after the forward and the loss, after the
-backward and after Adam; then it takes as many steps again with the
-batches read into memory first, so that no loader thread runs beside
-them. Prints the mean ms of each part over the last --steps steps, both
-ways, and one JSON line.
+arguments, 6000 points, B=8, lr 1e-3, a Loader of 2 worker threads) and
+traces --steps steps after 10 untraced ones; then as many steps again
+with the batches read into memory first, so that no loader thread runs
+beside them (in one process, without a group). Prints, both ways, the
+phases' host and device ms a step, the host's wait on the loader and the
+wall ms a step, and one JSON line.
 Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from garmentnets_tpu_torch.core.device import full_f32
+from garmentnets_tpu_torch.core import trace
 from garmentnets_tpu_torch.core.random_weights import init_like_jax_
 from garmentnets_tpu_torch.data.dataset import (
     ConvImplicitWNFDataset, Loader, collate)
 from garmentnets_tpu_torch.data.synthetic import generate_dataset
-from garmentnets_tpu_torch.harness.training import batch_to_device, make_adam
+from garmentnets_tpu_torch.harness.training import (
+    batch_to_device, make_adam, make_train_fns)
 from garmentnets_tpu_torch.models import pipeline, pointnet2_nocs
+from garmentnets_tpu_torch.parallel.mesh import init_distributed
 from garmentnets_tpu_torch.tools import e2e_synthetic
 from garmentnets_tpu_torch.tools.profile_encode import _device_ms
 
 N = 6000
+WARM_STEPS = 2
+SPLIT_SKIP = 10            # untraced steps before the split's traced ones
+PHASES = ("train/batch_to_device", "train/forward", "train/backward",
+          "train/all_reduce", "train/optimizer")
 
 
 def _ranged(module: torch.nn.Module, prefix: str) -> None:
@@ -73,8 +88,9 @@ def _ranged(module: torch.nn.Module, prefix: str) -> None:
         child.register_forward_hook(leave)
 
 
-def _stage(stage: int, root: pathlib.Path):
-    """(model, apply_fn, loss_fn, host batch) of one stage."""
+def _stage(stage: int, root: pathlib.Path, group=None):
+    """(model, apply_fn, loss_fn, host batch) of one stage; group: the
+    process group the loss's means span."""
     if stage == 1:
         cfg = pointnet2_nocs.PointNet2NOCSConfig()
         model = pointnet2_nocs.PointNet2NOCS(cfg)
@@ -88,7 +104,7 @@ def _stage(stage: int, root: pathlib.Path):
             return model(b["x"], b["pos"], generator=gen)
 
         def loss_fn(out, b):
-            return pointnet2_nocs.get_metrics(cfg, out, b)[0]
+            return pointnet2_nocs.get_metrics(cfg, out, b, group)[0]
     else:
         cfg = pipeline.PipelineConfig()
         model = pipeline.ConvImplicitWNFPipeline(cfg)
@@ -103,74 +119,82 @@ def _stage(stage: int, root: pathlib.Path):
             return model(b)
 
         def loss_fn(out, b):
-            return pipeline.pipeline_loss(cfg, out, b)
+            return pipeline.pipeline_loss(cfg, out, b, group)
     init_like_jax_(model, torch.Generator().manual_seed(0))
     if stage == 2:
         model.pointnet2_nocs.requires_grad_(False)
     return model, apply_fn, loss_fn, batch
 
 
-def profile_stage(stage: int, root: pathlib.Path, steps: int) -> dict:
-    dev = torch.device("cuda")
-    model, apply_fn, loss_fn, batch = _stage(stage, root)
-    model.to(dev).train()
-    _ranged(model, "forward/")
-    opt = make_adam(model, 1e-4)
-    b = batch_to_device(batch, dev)
+def _traced_steps(train_step, batches, dev, skip: int,
+                  traced: int) -> tuple:
+    """`skip` untraced steps, then `traced` steps under torch.profiler, of
+    train_step on the host batches that `batches` yields, each copied by
+    batch_to_device -> (the profiler, a report: wall and loader-wait ms a
+    traced step, and each train/* phase's host and device ms a step)."""
     gen = torch.Generator(device=dev).manual_seed(0)
+    wait = 0.0
 
-    def step(events=None):
-        def mark(i):
-            if events is not None:
-                events[i].record()
+    def step():
+        nonlocal wait
+        tw = time.perf_counter()
+        batch = next(batches)
+        wait += time.perf_counter() - tw
+        train_step(batch_to_device(batch, dev), gen)
 
-        with full_f32():
-            mark(0)
-            with record_function("forward"):
-                out = apply_fn(b, gen)
-            with record_function("loss"):
-                loss = loss_fn(out, b)["loss"]
-            opt.zero_grad(set_to_none=True)
-            mark(1)
-            loss.backward()
-            mark(2)
-            opt.step()
-            mark(3)
-
-    for _ in range(2):                                        # warm-up
+    for _ in range(skip):
         step()
-    # the phases by CUDA events on the stream, without the profiler (the
-    # autograd engine launches the backward from its own thread, outside
-    # any range of this one)
-    phase_ms = dict.fromkeys(("forward+loss", "backward", "optimizer"), 0.0)
-    for _ in range(steps):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        step(events)
-        events[3].synchronize()
-        for i, k in enumerate(phase_ms):
-            phase_ms[k] += events[i].elapsed_time(events[i + 1]) / steps
     torch.cuda.synchronize()
+    trace.reset()
+    wait = 0.0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(traced):
             step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        wall = time.perf_counter() - t0
+    host = {e.key: e.cpu_time_total / 1e3 / traced
+            for e in prof.key_averages() if e.key.startswith("train/")
+            and not str(getattr(e, "device_type", "")).endswith("CUDA")}
+    device = {k: ms / traced for k, (ms, _) in trace.device_ms().items()}
+    return prof, {"wall_ms": wall * 1e3 / traced,
+                  "loader_wait_ms": wait * 1e3 / traced,
+                  "phases_ms": {k: (host[k], device.get(k))
+                                for k in PHASES if k in host}}
+
+
+def _phases(report: dict) -> str:
+    return ", ".join(
+        f"{k[len('train/'):]} {h:.3f} / "
+        + ("-" if d is None else f"{d:.3f}")
+        for k, (h, d) in report["phases_ms"].items())
+
+
+def profile_stage(stage: int, root: pathlib.Path, steps: int,
+                  group=None) -> dict:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model, apply_fn, loss_fn, batch = _stage(stage, root, group)
+    model.to(dev)
+    _ranged(model, "forward/")
+    train_step, _ = make_train_fns(model, apply_fn, loss_fn,
+                                   make_adam(model, 1e-4), group)
+    prof, report = _traced_steps(train_step, iter(lambda: batch, None), dev,
+                                 WARM_STEPS, steps)
     spans, by_name = {}, {}
     for evt in prof.key_averages():
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
         ms = _device_ms(evt) / steps
-        if evt.key in ("forward", "loss") or evt.key.startswith("forward/"):
+        if evt.key.startswith("forward/"):
             spans[evt.key] = ms
-        elif ms > 0:
+        elif not evt.key.startswith("train/") and ms > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    n = len(batch["x"])
-    print(f"stage {stage}, B={n}: ms per step by CUDA events: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in phase_ms.items()))
+    n, wall_ms = len(batch["x"]), report["wall_ms"]
+    print(f"stage {stage}, B={n}: ms per step of each phase (host / "
+          f"device): {_phases(report)}")
     print(f"stage {stage}: forward spans on the device (ms per step, "
           f"{steps} traced): "
           + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()))
@@ -178,71 +202,30 @@ def profile_stage(stage: int, root: pathlib.Path, steps: int) -> dict:
           f"on), device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%)")
     for k, v in top:
         print(f"  {v:9.3f} ms  {k[:90]}")
-    return {"batch": n, "phase_ms": phase_ms, "forward_spans_ms": spans,
-            "traced_wall_ms": wall_ms,
+    return {"batch": n, **report, "forward_spans_ms": spans,
             "device_busy_ms": busy, "top_kernels_ms": dict(top)}
 
 
-SPLIT_SKIP = 10            # warm-up steps left out of the split
-SPLIT_PARTS = ("copy", "forward and loss", "backward", "Adam", "between",
-               "step")
-
-
-def _split_steps(model, cfg, opt, batches, dev) -> dict:
-    """One stage-1 train step (harness/training.make_train_fns's, marked)
-    a batch -> {part: [(CUDA events ms, host ms) a step]} over the steps
-    after SPLIT_SKIP; `between` runs from a step's Adam to the next
-    step's copy (the wait on the batch and the loop)."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-    marks = []
-    for batch in batches:
-        m = []
-
-        def mark():
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            m.append((ev, time.perf_counter()))
-
-        mark()
-        b = batch_to_device(batch, dev)
-        mark()
-        model.train()
-        with full_f32():
-            loss = pointnet2_nocs.get_metrics(
-                cfg, model(b["x"], b["pos"], generator=gen), b)[0]["loss"]
-            mark()
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            mark()
-            opt.step()
-            mark()
-        marks.append(m)
-    torch.cuda.synchronize()
-    out = {k: [] for k in SPLIT_PARTS}
-    for m, nxt in zip(marks[SPLIT_SKIP:], marks[SPLIT_SKIP + 1:]):
-        pairs = list(zip(m, m[1:])) + [(m[4], nxt[0]), (m[0], nxt[0])]
-        for k, (a, b) in zip(SPLIT_PARTS, pairs):
-            out[k].append((a[0].elapsed_time(b[0]), (b[1] - a[1]) * 1e3))
-    return out
-
-
 def loader_split(root: pathlib.Path, steps: int) -> dict:
-    """Stage 1 as the acceptance run takes it, split (see the module's
-    docstring), with the Loader's threads and with the batches in memory
-    -> {"loader" / "in memory": {part: (events ms, host ms) a step}}."""
+    """Stage 1 as the acceptance run takes it, split by the program's
+    spans (see the module's docstring), with the Loader's threads and
+    with the batches in memory -> {"loader" / "in memory": report}."""
     dev = torch.device("cuda")
     scale = e2e_synthetic.Scale()
     ds = ConvImplicitWNFDataset(
         zarr_path=str(root), metadata_cache_dir=None, volume_size=None,
         **e2e_synthetic.common_kwargs(scale))
-    B, n = scale.batch_size, SPLIT_SKIP + steps + 1
+    B, n = scale.batch_size, SPLIT_SKIP + steps
     idxs = np.concatenate([np.arange(len(ds))] * (n * B // len(ds) + 1))
     cfg = pointnet2_nocs.PointNet2NOCSConfig(
         learning_rate=e2e_synthetic.LR)
     model = pointnet2_nocs.PointNet2NOCS(cfg)
     init_like_jax_(model, torch.Generator().manual_seed(0))
     model.to(dev)
-    opt = make_adam(model, e2e_synthetic.LR)
+    train_step, _ = make_train_fns(
+        model, lambda b, gen: model(b["x"], b["pos"], generator=gen),
+        lambda out, b: pointnet2_nocs.get_metrics(cfg, out, b)[0],
+        make_adam(model, e2e_synthetic.LR))
     report = {}
     for how in ("loader", "in memory"):
         loader = Loader(ds, idxs, B, shuffle=True, drop_last=True,
@@ -250,15 +233,15 @@ def loader_split(root: pathlib.Path, steps: int) -> dict:
         it = iter(loader)
         batches = (next(it) for _ in range(n))
         if how == "in memory":
-            batches = list(batches)
-        parts = _split_steps(model, cfg, opt, batches, dev)
+            batches = iter(list(batches))
+        report[how] = _traced_steps(train_step, batches, dev, SPLIT_SKIP,
+                                    steps)[1]
         it.close()
-        report[how] = {k: tuple(float(x) for x in np.mean(v, 0))
-                       for k, v in parts.items()}
-        print(f"stage-1 split, {how}, B={B}, mean ms a step over {steps} "
-              "steps (CUDA events / host clock): " + ", ".join(
-                  f"{k} {d:.3f} / {h:.3f}"
-                  for k, (d, h) in report[how].items()), flush=True)
+        r = report[how]
+        print(f"stage-1 split, {how}, B={B}, ms a step over {steps} traced "
+              f"steps (host / device): {_phases(r)}; loader wait "
+              f"{r['loader_wait_ms']:.3f}, wall {r['wall_ms']:.3f}",
+              flush=True)
     return report
 
 
@@ -268,6 +251,10 @@ def main(argv=None) -> None:
                     help="traced steps a stage (3), or split steps (40)")
     ap.add_argument("--loader-split", action="store_true")
     args = ap.parse_args(argv)
+    group = None
+    if "WORLD_SIZE" in os.environ:
+        init_distributed(device="cuda")
+        group = dist.group.WORLD
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}")
     with tempfile.TemporaryDirectory() as tmp:
@@ -285,10 +272,11 @@ def main(argv=None) -> None:
                              grips_per_instance=24, volume_size=32,
                              pts_per_view=N // 4, num_views=4, seed=0,
                              include_task_space=False)
-            report = {"stages": {str(s): profile_stage(s, root,
-                                                       args.steps or 3)
-                                 for s in (1, 2)}}
+            report = {"stages": {str(s): profile_stage(
+                s, root, args.steps or 3, group) for s in (1, 2)}}
     print(json.dumps({"device": name, **report}))
+    if group is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

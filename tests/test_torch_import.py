@@ -43,8 +43,8 @@ EXPECTED = [
         "harness.eval_vis", "ops.geodesic", "ops.marching_cubes",
         "utils.rendering",
         "core.builders", "core.checkpoint", "core.config", "core.device",
-        "core.weights", "core.logging", "kernels.sa_tc", "kernels.fps",
-        "kernels.ggm", "kernels.dense_decode_tc",
+        "core.weights", "core.logging", "core.trace", "kernels.sa_tc",
+        "kernels.fps", "kernels.ggm", "kernels.dense_decode_tc",
         "ops.set_abstraction", "ops.geometry", "models.pointnet2",
         "data.blosc_codec", "data.zarrlite", "data.dataset",
         "data.synthetic", "utils.cache", "models.losses",
