@@ -19,6 +19,13 @@ reads False under such a profiler. Under a profiler:
   autograd's own thread, lie between the events as long as the exit is
   recorded after `loss.backward()` returns).
 
+`backward_span(name, x)` times, the same way, the backward of the work
+between `x` and the tensor given to the `close` it returns: an identity
+autograd node at each end records the entry event when the gradient of
+the output arrives and the exit event once the gradient of `x` is done,
+on the stream autograd runs them on. It records only under a profiler,
+on a card, and where `x` takes a gradient (no exit is reached otherwise).
+
 The event pairs go to a module-level table, as kernels/_build.LAUNCHES
 counts launches: `device_ms()` gives {name: (total ms, count)} and
 `reset()` clears it. Pairs whose exit the card has passed are folded into
@@ -50,10 +57,14 @@ def span(name: str, device=None):
     return _span(name, device)
 
 
+def _on_card(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
 @contextlib.contextmanager
 def _span(name: str, device):
     with record_function(name):
-        if device is None or torch.device(device).type != "cuda":
+        if not _on_card(device):
             yield
             return
         stream = torch.cuda.current_stream(device)
@@ -65,6 +76,47 @@ def _span(name: str, device):
         end.record(stream)
         with _LOCK:
             _PENDING.append((name, start, end))
+
+
+def _same(y):
+    return y
+
+
+def backward_span(name: str, x: torch.Tensor):
+    """-> (x, close): time the backward of the work from `x` to the tensor
+    that `close(y)` is given (close returns it) as the timed span `name`;
+    without a profiler, off a card, or where `x` takes no gradient, `x`
+    itself and an identity close."""
+    if not (_profiler._is_profiler_enabled and torch.is_grad_enabled()
+            and x.requires_grad and _on_card(x.device)):
+        return x, _same
+    pair = {}
+    return (_BackwardMark.apply(x, name, pair, False),
+            lambda y: _BackwardMark.apply(y, name, pair, True))
+
+
+class _BackwardMark(torch.autograd.Function):
+    """Identity; its backward records a timing CUDA event on the current
+    stream: the entry at the output's end (it runs first), the exit at the
+    input's end, which then puts the pair in the table."""
+
+    @staticmethod
+    def forward(ctx, x, name, pair, entry):
+        ctx.name, ctx.pair, ctx.entry = name, pair, entry
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.entry:
+            _fold(wait=False)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(grad.device))
+        if ctx.entry:
+            ctx.pair["start"] = event
+        elif "start" in ctx.pair:
+            with _LOCK:
+                _PENDING.append((ctx.name, ctx.pair.pop("start"), event))
+        return grad, None, None, None
 
 
 def _fold(wait: bool) -> None:

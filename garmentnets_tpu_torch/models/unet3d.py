@@ -7,10 +7,13 @@ the reference Lightning layout (`abstract_3d_unet.encoders.{i}.basic_module.
 SingleConv{1,2}.{groupnorm,conv,batchnorm}`, `final_conv`).
 
 Conv3d runs with TF32 off: cuDNN's TF32 default keeps ~3 decimal digits
-and would break the f32 parity bar. 'gcr' (the shipped order) has no
-running statistics; an order with 'b' normalizes with BatchNorm3d's batch
-statistics in training mode and moves its running statistics (momentum
-0.1, unbiased variance), as the JAX MaskedBatchNorm does without a mask.
+and would break the f32 parity bar. The 3x3x3 convolutions take their
+gradients as swapped problems (SwapGradConv3d): at the U-Net's shapes
+cuDNN's heuristics run those on engines up to 3.6x faster than the ones
+they pick for the same sums asked as input and filter gradients. 'gcr' (the shipped order) has no running statistics; an order
+with 'b' normalizes with BatchNorm3d's batch statistics in training mode
+and moves its running statistics (momentum 0.1, unbiased variance), as
+the JAX MaskedBatchNorm does without a mask.
 ResidualUNet3D (reference unet3d.py:494-509) is keyed like UNet3D, with
 `encoders.{i}.basic_module.conv{1,2,3}` and
 `decoders.{i}.upsampling.upsample` (a ConvTranspose3d); no
@@ -23,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from garmentnets_tpu_torch.core.device import full_f32
+from garmentnets_tpu_torch.core.trace import backward_span, span
 from garmentnets_tpu_torch.models.mlp import train_batch_norm
 
 
@@ -44,6 +48,74 @@ def number_of_features_per_level(init: int, num_levels: int):
     return [init * 2 ** k for k in range(num_levels)]
 
 
+def _swapped(weight, padding) -> tuple:
+    """The kernel and padding of the swapped problem: the convolution at
+    stride 1 from the output back to the input, the kernel flipped and its
+    in and out channels exchanged."""
+    pad = [n - 1 - p for n, p in zip(weight.shape[2:], padding)]
+    return weight.transpose(0, 1).flip(2, 3, 4).contiguous(), pad
+
+
+def input_grad(grad, weight, padding):
+    """The input gradient of a stride-1 convolution as the forward
+    convolution of the swapped problem on the output gradient (the same
+    sum in another order)."""
+    w, pad = _swapped(weight, padding)
+    return F.conv3d(grad, w, None, 1, pad)
+
+
+def weight_grad(grad, x, weight, padding):
+    """The filter gradient of a stride-1 convolution as the filter
+    gradient of the swapped problem (from grad to x), turned back: the
+    same sum in another order."""
+    w, pad = _swapped(weight, padding)
+    swapped = torch.ops.aten.convolution_backward(
+        x, grad, w, None, [1, 1, 1], pad, [1, 1, 1], False, [0, 0, 0], 1,
+        [False, True, False])[1]
+    return swapped.transpose(0, 1).flip(2, 3, 4).contiguous()
+
+
+class _SwapGrad(torch.autograd.Function):
+    """conv3d at stride 1 whose backward is input_grad and weight_grad,
+    in full f32 whatever flags the backward's caller has set."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.padding, ctx.bias = padding, bias is not None
+        return F.conv3d(x, weight, bias, 1, padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        grad = grad.contiguous()
+        gx = gw = gb = None
+        with full_f32():
+            if ctx.needs_input_grad[0]:
+                gx = input_grad(grad, weight, ctx.padding)
+            if ctx.needs_input_grad[1]:
+                gw = weight_grad(grad, x, weight, ctx.padding)
+        if ctx.bias and ctx.needs_input_grad[2]:
+            gb = grad.sum((0, 2, 3, 4))
+        return gx, gw, gb, None
+
+
+class SwapGradConv3d(nn.Conv3d):
+    """nn.Conv3d at stride 1 (same state dict) whose gradients are
+    input_grad and weight_grad: on a card the U-Net's input gradients then
+    run on cuDNN's f32 implicit-GEMM forward engines and its filter
+    gradients on the swapped problem, at the same f32 sums
+    (tools/profile_unet3d.py measures both ways)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, padding,
+                 bias):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=padding, bias=bias)
+
+    def forward(self, x):
+        return _SwapGrad.apply(x, self.weight, self.bias, self.padding)
+
+
 class SingleConv(nn.Sequential):
     """One conv layer from an order string (reference create_conv):
     c(onv) g(roupnorm) b(atchnorm) r(elu) l(eaky relu) e(lu). The conv has
@@ -58,7 +130,7 @@ class SingleConv(nn.Sequential):
         conv_pos = order.index("c")
         for i, ch in enumerate(order):
             if ch == "c":
-                self.add_module("conv", nn.Conv3d(
+                self.add_module("conv", SwapGradConv3d(
                     in_channels, out_channels, kernel_size,
                     padding=kernel_size // 2,
                     bias=not ("g" in order or "b" in order)))
@@ -251,8 +323,12 @@ class UNet3D(nn.Module):
             num_levels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, D, H, W, C] -> [B, D, H, W, C_out]."""
-        h = x.permute(0, 4, 1, 2, 3).contiguous()
-        with full_f32():
-            h = self.abstract_3d_unet(h)
-        return h.permute(0, 2, 3, 4, 1).contiguous()
+        """x: [B, D, H, W, C] -> [B, D, H, W, C_out]. Under a profiler the
+        forward is the timed span `unet3d/forward` and its backward
+        `unet3d/backward` (core/trace.py)."""
+        with span("unet3d/forward", x.device):
+            x, close = backward_span("unet3d/backward", x)
+            h = x.permute(0, 4, 1, 2, 3).contiguous()
+            with full_f32():
+                h = self.abstract_3d_unet(h)
+            return close(h.permute(0, 2, 3, 4, 1).contiguous())

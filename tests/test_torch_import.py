@@ -51,7 +51,8 @@ EXPECTED = [
         "harness.training", "harness.train_pointnet2",
         "harness.train_pipeline", "harness.vis_hooks", "ops.normals",
         "ops.isosurface", "models.unet3d", "parallel.mesh",
-        "tools.e2e_synthetic", "tools.export_meshes", "tools.bench_input")]
+        "tools.e2e_synthetic", "tools.export_meshes", "tools.bench_input",
+        "tools.profile_unet3d")]
 
 
 def _env():

@@ -7,6 +7,7 @@ One test is marked `cuda` and skips without a card; on a machine with one
 
     python -m pytest tests/test_torch_trace.py --noconftest -q
 """
+import itertools
 import json
 import time
 
@@ -19,6 +20,7 @@ from garmentnets_tpu_torch.core import trace
 from garmentnets_tpu_torch.harness.training import (
     batch_to_device, make_adam, make_train_fns)
 from garmentnets_tpu_torch.models import pointnet2_nocs as nocs
+from garmentnets_tpu_torch.models.unet3d import UNet3D
 
 PHASES = ["train/batch_to_device", "train/forward", "train/backward",
           "train/optimizer"]
@@ -124,3 +126,112 @@ def test_device_timers_on_a_card(tmp_path):
     assert sum(ms for ms, _ in got.values()) <= wall_ms
     names = [name for _, name in _annotations(prof, tmp_path)]
     assert names == PHASES * steps
+
+
+def _unet_step(x: torch.Tensor):
+    """A small U-Net's forward and backward of its output's sum -> (the
+    output, its input's gradient or None, its parameters' gradients)."""
+    torch.manual_seed(0)
+    net = UNet3D(8, 4, f_maps=8, num_levels=2)
+    y = net(x)
+    y.sum().backward()
+    return y.detach(), x.grad, [p.grad for p in net.parameters()]
+
+
+def _volume(requires_grad: bool = True) -> torch.Tensor:
+    return torch.randn(2, 4, 4, 4, 8, generator=torch.Generator(
+        ).manual_seed(1)).requires_grad_(requires_grad)
+
+
+def test_unet_backward_timer_records_nothing_without_a_profiler(
+        monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("timed without a profiler")
+
+    monkeypatch.setattr(trace, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(trace._BackwardMark, "apply", refuse)
+    trace.reset()
+    x = _volume()
+    assert trace.backward_span("unet3d/backward", x)[0] is x
+    _, grad, _ = _unet_step(x)
+    assert grad is not None
+    assert trace.device_ms() == {}
+
+
+class _FakeEvent:
+    """A CUDA event that records a tick of a shared clock."""
+    clock = itertools.count(1)
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = next(self.clock)
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return float(end.t - self.t)
+
+
+def test_unet_spans_on_a_faked_card(monkeypatch, tmp_path):
+    """With the card's events faked on the CPU: one timed forward and one
+    backward pair (entry before exit) a step, none for the backward of a
+    volume that takes no gradient, and the same numbers as without."""
+    plain = _unet_step(_volume())
+    monkeypatch.setattr(trace, "_on_card", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: 0)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        timed = [_unet_step(_volume()) for _ in range(2)]
+        _unet_step(_volume(requires_grad=False))
+    # each exit is recorded one tick after its entry
+    assert trace.device_ms() == {"unet3d/forward": (3.0, 3),
+                                 "unet3d/backward": (2.0, 2)}
+    for y, grad, grads in timed:
+        assert torch.equal(y, plain[0]) and torch.equal(grad, plain[1])
+        assert all(torch.equal(a, b) for a, b in zip(grads, plain[2]))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    assert names.count("unet3d/forward") == 3
+
+
+@pytest.mark.cuda
+def test_unet_timers_on_a_card():
+    """The U-Net's forward and backward timers on the card: one pair each
+    a step, the backward's inside the step's wall time and longer than
+    none, both absent without a profiler."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the timers are CUDA events")
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(0)
+    net = UNet3D(16, 8, f_maps=8, num_levels=3).to(dev)
+    x = torch.randn(2, 16, 16, 16, 16, device=dev, requires_grad=True)
+
+    def step():
+        net(x).square().mean().backward()
+
+    step()
+    torch.cuda.synchronize()
+    trace.reset()
+    step()
+    assert trace.device_ms() == {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    got = trace.device_ms()
+    assert sorted(got) == ["unet3d/backward", "unet3d/forward"]
+    for name, (ms, n) in got.items():
+        assert n == 3 and 0 < ms < wall_ms, (name, ms, n)
