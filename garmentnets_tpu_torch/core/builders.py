@@ -69,6 +69,7 @@ def build_pipeline_config(conv_cfg: dict,
         unet_layer_order=unet.get("layer_order", "gcr"),
         unet_num_groups=unet.get("num_groups", 8),
         unet_num_levels=unet.get("num_levels", 4),
+        unet_name=unet.get("name", "UNet3D"),
         volume_decoder_channels=tuple(
             conv_cfg["volume_decoder_params"]["nn_channels"]),
         surface_decoder_channels=tuple(
@@ -97,7 +98,10 @@ def pipeline_config_from_hparams(hp: dict) -> PipelineConfig:
 
 def pipeline_hparams(cfg: PipelineConfig) -> dict:
     """PipelineConfig -> the reference's nested hparams schema (the JAX
-    package's pipeline_hparams)."""
+    package's pipeline_hparams); `unet3d_params.name` only where the U-Net
+    is not the default UNet3D, so a default checkpoint's hparams are the
+    reference's."""
+    unet = {"name": cfg.unet_name} if cfg.unet_name != "UNet3D" else {}
     return {
         "pointnet2_params": pointnet2_hparams(cfg.pointnet2),
         "volume_agg_params": {
@@ -109,6 +113,7 @@ def pipeline_hparams(cfg: PipelineConfig) -> dict:
             "include_confidence_feature": cfg.include_confidence_feature,
         },
         "unet3d_params": {
+            **unet,
             "in_channels": cfg.unet_in_channels,
             "out_channels": cfg.unet_out_channels,
             "f_maps": cfg.unet_f_maps,

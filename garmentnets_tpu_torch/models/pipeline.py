@@ -11,7 +11,9 @@ names follow the reference Lightning layout (`pointnet2_nocs`,
 `PipelineConfig` is here: the aggregator's include flags, the task-space
 volume (`volume_task_space`), the mc-surface (hole) head
 (`mc_surface_loss_weight > 0`) and the BCE volume loss
-(`volume_classification`).
+(`volume_classification`). The port alone can also take the residual U-Net
+(`unet_name`, pytorch-3dunet's model name: "UNet3D", the default, or
+"ResidualUNet3D").
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from garmentnets_tpu_torch.models.losses import masked_mean
 from garmentnets_tpu_torch.models.mlp import PointMLP
 from garmentnets_tpu_torch.models.pointnet2_nocs import (
     PointNet2NOCS, PointNet2NOCSConfig, logits_to_nocs_bins)
-from garmentnets_tpu_torch.models.unet3d import UNet3D
+from garmentnets_tpu_torch.models.unet3d import ResidualUNet3D, UNet3D
 from garmentnets_tpu_torch.ops.grid_sample import grid_sample_trilinear
 from garmentnets_tpu_torch.ops.scatter import scatter_to_grid
 from garmentnets_tpu_torch.ops.virtual_grid import VirtualGrid
@@ -84,6 +86,9 @@ class ImplicitWNFDecoder(nn.Module):
         return self.mlp(sampled)
 
 
+UNETS = {"UNet3D": UNet3D, "ResidualUNet3D": ResidualUNet3D}
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     pointnet2: PointNet2NOCSConfig = PointNet2NOCSConfig()
@@ -99,6 +104,7 @@ class PipelineConfig:
     unet_layer_order: str = "gcr"
     unet_num_groups: int = 8
     unet_num_levels: int = 4
+    unet_name: str = "UNet3D"
     volume_decoder_channels: Tuple[int, ...] = (128, 256, 256, 1)
     surface_decoder_channels: Tuple[int, ...] = (128, 256, 256, 3)
     mc_surface_decoder_channels: Tuple[int, ...] = (128, 256, 256, 1)
@@ -112,6 +118,12 @@ class PipelineConfig:
     mc_surface_loss_weight: float = 0.0
     volume_classification: bool = False
     volume_task_space: bool = False
+
+    def __post_init__(self):
+        if self.unet_name not in UNETS:
+            raise ValueError(
+                f"conv_implicit_model.unet3d_params.name={self.unet_name!r}:"
+                f" expected one of {sorted(UNETS)}")
 
     @property
     def has_mc_surface_decoder(self) -> bool:
@@ -127,7 +139,7 @@ class ConvImplicitWNFPipeline(nn.Module):
             c.volume_agg_nn_channels, c.volume_agg_batch_norm, c.grid_shape,
             c.reduce_method, c.include_point_feature,
             c.include_confidence_feature)
-        self.unet_3d = UNet3D(
+        self.unet_3d = UNETS[c.unet_name](
             c.unet_in_channels, c.unet_out_channels, f_maps=c.unet_f_maps,
             layer_order=c.unet_layer_order, num_groups=c.unet_num_groups,
             num_levels=c.unet_num_levels)

@@ -16,8 +16,10 @@ and moves its running statistics (momentum 0.1, unbiased variance), as
 the JAX MaskedBatchNorm does without a mask.
 ResidualUNet3D (reference unet3d.py:494-509) is keyed like UNet3D, with
 `encoders.{i}.basic_module.conv{1,2,3}` and
-`decoders.{i}.upsampling.upsample` (a ConvTranspose3d); no
-PipelineConfig selects it.
+`decoders.{i}.upsampling.upsample` (a ConvTranspose3d: in full f32 inside
+ResidualUNet3D.forward, its backward inside the train step's full_f32, as
+final_conv's); `PipelineConfig.unet_name` selects it
+(`conv_implicit_model.unet3d_params.name: ResidualUNet3D`).
 """
 from __future__ import annotations
 
@@ -201,7 +203,9 @@ class ExtResNetBlock(nn.Module):
 
 class _Upsampling(nn.Module):
     """ConvTranspose3d(k=3, s=2, p=1) to the skip's size (output padding
-    1 for the exact doubling of every level)."""
+    1 for the exact doubling of every level). Under a profiler it is the
+    timed span `unet3d/upsample` and its backward `unet3d/upsample_backward`
+    (core/trace.py)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -209,7 +213,9 @@ class _Upsampling(nn.Module):
                                            stride=2, padding=1)
 
     def forward(self, x, size):
-        return self.upsample(x, output_size=size)
+        with span("unet3d/upsample", x.device):
+            x, close = backward_span("unet3d/upsample_backward", x)
+            return close(self.upsample(x, output_size=size))
 
 
 class _Stage(nn.Module):
@@ -303,11 +309,14 @@ class ResidualUNet3D(nn.Module):
             num_levels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, D, H, W, C] -> [B, D, H, W, C_out]."""
-        h = x.permute(0, 4, 1, 2, 3).contiguous()
-        with full_f32():
-            h = self.abstract_3d_unet(h)
-        return h.permute(0, 2, 3, 4, 1).contiguous()
+        """x: [B, D, H, W, C] -> [B, D, H, W, C_out]; spans as
+        UNet3D.forward's, and each upsampling's own (_Upsampling)."""
+        with span("unet3d/forward", x.device):
+            x, close = backward_span("unet3d/backward", x)
+            h = x.permute(0, 4, 1, 2, 3).contiguous()
+            with full_f32():
+                h = self.abstract_3d_unet(h)
+            return close(h.permute(0, 2, 3, 4, 1).contiguous())
 
 
 class UNet3D(nn.Module):

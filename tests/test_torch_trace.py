@@ -20,7 +20,7 @@ from garmentnets_tpu_torch.core import trace
 from garmentnets_tpu_torch.harness.training import (
     batch_to_device, make_adam, make_train_fns)
 from garmentnets_tpu_torch.models import pointnet2_nocs as nocs
-from garmentnets_tpu_torch.models.unet3d import UNet3D
+from garmentnets_tpu_torch.models.unet3d import ResidualUNet3D, UNet3D
 
 PHASES = ["train/batch_to_device", "train/forward", "train/backward",
           "train/optimizer"]
@@ -128,18 +128,20 @@ def test_device_timers_on_a_card(tmp_path):
     assert names == PHASES * steps
 
 
-def _unet_step(x: torch.Tensor):
+def _unet_step(x: torch.Tensor, residual: bool = False):
     """A small U-Net's forward and backward of its output's sum -> (the
-    output, its input's gradient or None, its parameters' gradients)."""
+    output, its input's gradient or None, its parameters' gradients);
+    residual: the five-level ResidualUNet3D ('gcr'), over a 16^3 volume."""
     torch.manual_seed(0)
-    net = UNet3D(8, 4, f_maps=8, num_levels=2)
+    net = (ResidualUNet3D(8, 4, f_maps=4, layer_order="gcr", num_groups=2)
+           if residual else UNet3D(8, 4, f_maps=8, num_levels=2))
     y = net(x)
     y.sum().backward()
     return y.detach(), x.grad, [p.grad for p in net.parameters()]
 
 
-def _volume(requires_grad: bool = True) -> torch.Tensor:
-    return torch.randn(2, 4, 4, 4, 8, generator=torch.Generator(
+def _volume(requires_grad: bool = True, side: int = 4) -> torch.Tensor:
+    return torch.randn(2, side, side, side, 8, generator=torch.Generator(
         ).manual_seed(1)).requires_grad_(requires_grad)
 
 
@@ -179,14 +181,18 @@ class _FakeEvent:
         return float(end.t - self.t)
 
 
+def _fake_card(monkeypatch):
+    monkeypatch.setattr(trace, "_on_card", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: 0)
+
+
 def test_unet_spans_on_a_faked_card(monkeypatch, tmp_path):
     """With the card's events faked on the CPU: one timed forward and one
     backward pair (entry before exit) a step, none for the backward of a
     volume that takes no gradient, and the same numbers as without."""
     plain = _unet_step(_volume())
-    monkeypatch.setattr(trace, "_on_card", lambda device: True)
-    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: 0)
+    _fake_card(monkeypatch)
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         timed = [_unet_step(_volume()) for _ in range(2)]
@@ -203,6 +209,54 @@ def test_unet_spans_on_a_faked_card(monkeypatch, tmp_path):
         names = [e["name"] for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"]
     assert names.count("unet3d/forward") == 3
+
+
+RESIDUAL_SPANS = {"unet3d/forward": 1, "unet3d/backward": 1,
+                  "unet3d/upsample": 4, "unet3d/upsample_backward": 4}
+
+
+def test_residual_unet_spans_on_a_faked_card(monkeypatch, tmp_path):
+    """ResidualUNet3D on a faked card: a timed forward and backward pair a
+    step, and one upsample and upsample_backward pair for each of its four
+    transposed convolutions; where the volume takes no gradient, no
+    unet3d/backward (the upsamplings' inputs still take one, for the
+    weights); the same numbers as without."""
+    plain = _unet_step(_volume(side=16), residual=True)
+    _fake_card(monkeypatch)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        timed = [_unet_step(_volume(side=16), residual=True)
+                 for _ in range(2)]
+        _unet_step(_volume(False, side=16), residual=True)
+    got = trace.device_ms()
+    assert {k: n for k, (_, n) in got.items()} == {
+        k: 2 * n + (k != "unet3d/backward") * n
+        for k, n in RESIDUAL_SPANS.items()}
+    assert all(ms > 0 for ms, _ in got.values())
+    for y, grad, grads in timed:
+        assert torch.equal(y, plain[0]) and torch.equal(grad, plain[1])
+        assert all(torch.equal(a, b) for a, b in zip(grads, plain[2]))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    assert names.count("unet3d/forward") == 3
+    assert names.count("unet3d/upsample") == 12
+
+
+def test_residual_unet_records_nothing_without_a_profiler(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("timed without a profiler")
+
+    _fake_card(monkeypatch)
+    monkeypatch.setattr(trace, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(trace._BackwardMark, "apply", refuse)
+    trace.reset()
+    _, grad, _ = _unet_step(_volume(side=16), residual=True)
+    assert grad is not None
+    assert trace.device_ms() == {}
 
 
 @pytest.mark.cuda
