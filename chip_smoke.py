@@ -125,6 +125,9 @@ TC_LIMITS = {"highest": (2e-5, 1e-4), "high": (2e-5, 2e-4),
 # input element's split takes, per tier
 TC_PASSES = {"highest": 6, "high": 3, "default": 1}
 TC_SPLIT_OPS = {"highest": 5, "high": 3, "default": 1}
+# the shipped UNet3D's 3x3x3 convolutions: one filter-gradient launch each
+# a stage-2 train step
+UNET_CONVS = 14
 
 
 def log(msg: str) -> None:
@@ -550,7 +553,81 @@ def phase_kernels(dev) -> dict:
         replaces="garmentnets_tpu/kernels/sa_pallas.py:166",
         max_abs_err=sa["err"], ms=sa["ms"], plain_ms=sa["plain_ms"],
         bound_ms=sa["bound"], bound_by=by, library_ms=None)
+    rows["conv3d_wgrad"] = conv3d_wgrad_row(dev)
     return rows
+
+
+def conv3d_wgrad_row(dev) -> dict:
+    """The U-Net's filter-gradient kernel at every distinct 3x3x3
+    convolution shape of both U-Nets (B=24, 32^3): against float64 beside
+    cuDNN's f32 filter gradient (TF32 off, at most twice its error) and
+    bit-equal on a second launch; at the largest (128 -> 128 at 32^3) its
+    time, the bf16x6 bound, the plain version (the swapped problem, the
+    CPU's path) and cuDNN's convolution_backward."""
+    import torch
+    from garmentnets_tpu_torch.core.device import full_f32
+    from garmentnets_tpu_torch.kernels.conv3d_wgrad import (
+        conv3d_wgrad_cuda, wgrad_flops, wgrad_float64)
+    from garmentnets_tpu_torch.models.unet3d import swapped_weight_grad
+    from garmentnets_tpu_torch.tools.profile_unet3d import wgrad_shapes
+
+    def library(g, x, w):
+        return torch.ops.aten.convolution_backward(
+            g, x, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
+            [0, 0, 0], 1, [False, True, False])[1]
+
+    def inputs(b, cin, cout, side):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(b, cin, side, side, side, device=dev, generator=gen)
+        g = torch.randn(b, cout, side, side, side, device=dev,
+                        generator=gen)
+        return g, x, torch.empty(cout, cin, 3, 3, 3, device=dev)
+
+    shapes = []
+    for unet in ("UNet3D", "ResidualUNet3D"):
+        shapes += [s for s in wgrad_shapes(unet, 24, 32) if s not in shapes]
+    timed = (24, 128, 128, 32)
+    check(timed in shapes, f"conv3d_wgrad: {timed} not a U-Net shape")
+    errs = {}
+    with full_f32():
+        for b, cin, cout, side in shapes:
+            g, x, w = inputs(b, cin, cout, side)
+            got = conv3d_wgrad_cuda(g, x)
+            lib = library(g, x, w)
+            ref = wgrad_float64(g, x)
+            scale = float(ref.abs().max())
+            err = float((got.double() - ref).abs().max())
+            lib_err = float((lib.double() - ref).abs().max())
+            del ref
+            errs[(b, cin, cout, side)] = err
+            shape = f"{cin}->{cout} at {side}^3, B={b}"
+            log(f"conv3d_wgrad {shape}: error over the largest entry "
+                f"{err / scale:.3e}, cuDNN's {lib_err / scale:.3e}")
+            check(err <= 2 * lib_err, f"conv3d_wgrad {shape}: error "
+                  f"{err:.3e} above twice cuDNN's {lib_err:.3e}")
+            check(torch.equal(got, conv3d_wgrad_cuda(g, x)),
+                  f"conv3d_wgrad {shape}: two launches differ")
+        g, x, w = inputs(*timed)
+        ms = time_ms(lambda: conv3d_wgrad_cuda(g, x), 10)
+        pms = time_ms(lambda: swapped_weight_grad(g, x, w, (1, 1, 1)), 5)
+        lms = time_ms(lambda: library(g, x, w), 5)
+    b, cin, cout, side = timed
+    flops = wgrad_flops(b, side, side, side, cin, cout)
+    # each operand's f32 read, its three bf16 parts written and read, the
+    # output written
+    n_bytes = 2 * x.numel() * (4 + 2 * 3 * 2) + w.numel() * 4
+    bnd, by = bound_ms(n_bytes, 6 * flops, BF16_FLOPS)
+    log(f"conv3d_wgrad {len(shapes)} shapes within twice cuDNN's error, "
+        f"bit-equal relaunches; 128->128 at 32^3, B=24: kernel {ms:.3f} ms "
+        f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s f32-equivalent, "
+        f"{100 * bnd / ms:.1f}% of the bf16x6 bound {bnd:.3f} ms, {by}), "
+        f"plain (swapped problem) {pms:.3f} ms, cuDNN {lms:.3f} ms")
+    return dict(
+        name="conv3d_wgrad", route="cuda",
+        source="garmentnets_tpu_torch/csrc/conv3d_wgrad.cu",
+        replaces="none (JAX's U-Net convolution is lax.conv)",
+        max_abs_err=errs[timed], ms=ms, plain_ms=pms, bound_ms=bnd,
+        bound_by=by, library_ms=lms)
 
 
 def phase_main_path(dev) -> dict:
@@ -622,7 +699,8 @@ def phase_main_path(dev) -> dict:
         f"{launches['highest']}")
     for tier, n in (("high", N_BATCHES), ("highest", 1)):
         check(launches[tier] == {"fps": 2 * n, "dense_decode_tc": n,
-                                 "ggm": n, "sa_tc": 2 * n},
+                                 "ggm": n, "sa_tc": 2 * n,
+                                 "conv3d_wgrad": 0},
               f"unexpected launch counts at '{tier}': {launches[tier]}")
     check(bool(torch.isfinite(enc32["wnf_ggm"]).all()), "f32 ggm not finite")
     del enc32
@@ -788,7 +866,7 @@ def serve_on_mesh(dev, ckpt, traffic: list, one_results: dict) -> dict:
         want = {"fps": 2 * n_data * n_batches,
                 "sa_tc": 2 * n_data * n_batches,
                 "dense_decode_tc": n_data * n_space * n_batches,
-                "ggm": n_data * n_batches}
+                "ggm": n_data * n_batches, "conv3d_wgrad": 0}
         check(n_batches >= 1 and launches == want,
               f"serve on {label}: launches {launches} over {n_batches} "
               f"batches, expected {want}")
@@ -915,7 +993,7 @@ def phase_serve(dev) -> dict:
               "the service's default tier")
         check(n_batches >= 1 and launches == {
             "fps": 2 * n_batches, "dense_decode_tc": n_batches,
-            "ggm": n_batches, "sa_tc": 2 * n_batches},
+            "ggm": n_batches, "sa_tc": 2 * n_batches, "conv3d_wgrad": 0},
               f"serve launches {launches} over {n_batches} batches")
         check(overlapped >= 1, "host MC never overlapped the next encode")
         lat = np.percentile(latencies, [50, 90])
@@ -1039,7 +1117,8 @@ def phase_predict_cli(dev, tmp: pathlib.Path) -> tuple:
     launches = dict(_build.LAUNCHES)
     log(f"predict CLI launches over {n_batches} batches: {launches}")
     check(launches == {"fps": 2 * n_batches, "sa_tc": 2 * n_batches,
-                       "dense_decode_tc": n_batches, "ggm": n_batches},
+                       "dense_decode_tc": n_batches, "ggm": n_batches,
+                       "conv3d_wgrad": 0},
           f"unexpected launch counts in the predict CLI: {launches}")
 
     summary = json.loads((run / "summary.json").read_text())
@@ -1338,7 +1417,7 @@ def phase_variants(dev, tmp: pathlib.Path) -> dict:
         log(f"variant {name}: launches over its one batch {launches}; "
             f"predict {t_pred:.1f} s")
         check(launches == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 1,
-                           "ggm": 1},
+                           "ggm": 1, "conv3d_wgrad": 0},
               f"unexpected launch counts in variant {name}: {launches}")
         root = zarrlite.open(str(run / "prediction.zarr"), "r")
         n_on, n_verts = 0, 0
@@ -1553,7 +1632,7 @@ def phase_large_volume(dev, tmp: pathlib.Path) -> dict:
     n = LARGE_BATCHES
     log(f"large volume launches over {n} batches: {launches}")
     check(launches == {"fps": 2 * n, "sa_tc": 2 * n, "dense_decode_tc": n,
-                       "ggm": n},
+                       "ggm": n, "conv3d_wgrad": 0},
           f"unexpected launch counts at {S}^3: {launches}")
 
     # ---- (b) the masks ----
@@ -1705,7 +1784,7 @@ def phase_large_volume(dev, tmp: pathlib.Path) -> dict:
         PredictEngine.warp_collect = collect
     cli_launches = dict(_build.LAUNCHES)
     check(cli_launches == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 1,
-                           "ggm": 1},
+                           "ggm": 1, "conv3d_wgrad": 0},
           f"unexpected launch counts in the {S}^3 CLI: {cli_launches}")
     summary = json.loads((run / "summary.json").read_text())
     rec = json.loads((run / "metrics.jsonl").read_text().splitlines()[0])
@@ -2103,7 +2182,8 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
     run1, wall1 = run_cli(train_pointnet2.main, cfg1, "train_s1")
     evals1 = S1_EPOCHS * (n_val + 1)
     want = {"fps": 2 * (S1_EPOCHS * S1_BATCHES + evals1),
-            "sa_tc": 2 * evals1, "dense_decode_tc": 0, "ggm": 0}
+            "sa_tc": 2 * evals1, "dense_decode_tc": 0, "ggm": 0,
+            "conv3d_wgrad": 0}
     check(launches["train_s1"] == want,
           f"stage-1 CLI launches {launches['train_s1']}, expected {want}")
     recs, summary = run_summary(run1)
@@ -2140,7 +2220,7 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
     n_val2 = -(-len(dm1.val_idxs) // dm2cfg["batch_size"])
     per = steps2 + S2_EPOCHS * (n_val2 + 1)
     want = {"fps": 2 * per, "sa_tc": 2 * per, "dense_decode_tc": 0,
-            "ggm": 0}
+            "ggm": 0, "conv3d_wgrad": UNET_CONVS * steps2}
     check(steps2 >= 4 and launches["train_s2"] == want,
           f"stage-2 CLI launches {launches['train_s2']}, expected {want}")
     recs, summary = run_summary(run2)
@@ -2166,7 +2246,8 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
         run3, wall3 = run_cli(predict.main, cfg, "train_predict")
     check(launches["train_predict"] == {
         "fps": 2, "sa_tc": 2, "dense_decode_tc": 1 + redecoded[0],
-        "ggm": 1}, f"predict launches {launches['train_predict']} "
+        "ggm": 1, "conv3d_wgrad": 0},
+          f"predict launches {launches['train_predict']} "
           f"({redecoded[0]} decoded again after a brick-cap overflow)")
     pred = json.loads((run3 / "summary.json").read_text())
     check(pred["garments"] == len(dm1.test_idxs), "predict garments")
@@ -2185,9 +2266,11 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
         lambda b, g: model1(b["x"], b["pos"], generator=g), batch1,
         LEARN_STEPS, (WARM_STEPS, WARM_STEPS + TIMED_STEPS))
     check(t1["step"] == {"fps": 2, "sa_tc": 0, "dense_decode_tc": 0,
-                         "ggm": 0}, f"stage-1 train step launches {t1}")
+                         "ggm": 0, "conv3d_wgrad": 0},
+          f"stage-1 train step launches {t1}")
     check(t1["eval"] == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 0,
-                         "ggm": 0}, f"stage-1 eval step launches {t1}")
+                         "ggm": 0, "conv3d_wgrad": 0},
+          f"stage-1 eval step launches {t1}")
     check(t1["losses"][-1] < t1["losses"][0],
           f"stage 1 does not learn one batch: {t1['losses']}")
     del model1
@@ -2204,7 +2287,8 @@ def phase_train(dev, tmp: pathlib.Path) -> dict:
         lambda b, g: model2(b), batch2, WARM_STEPS + TIMED_STEPS + 1,
         (WARM_STEPS, WARM_STEPS + TIMED_STEPS))
     check(t2["step"] == {"fps": 2, "sa_tc": 2, "dense_decode_tc": 0,
-                         "ggm": 0}, f"stage-2 train step launches {t2}")
+                         "ggm": 0, "conv3d_wgrad": UNET_CONVS},
+          f"stage-2 train step launches {t2}")
     del model2
     for stage, t, b in ((1, t1, batch1), (2, t2, batch2)):
         n = len(b["x"])
@@ -2522,10 +2606,12 @@ def phase_e2e(dev, tmp: pathlib.Path) -> dict:
     # partial batch (the JAX tool's prediction.subset=train)
     nb = n // B
     want = {"fps": 2 * (s1 + s2 + nb), "sa_tc": 2 * (s2 + nb),
-            "dense_decode_tc": nb + redecoded[0], "ggm": nb}
+            "dense_decode_tc": nb + redecoded[0], "ggm": nb,
+            "conv3d_wgrad": UNET_CONVS * s2}
     check(launches == want,
           f"e2e launches {launches}, expected {want} (stage-1 steps FPS "
-          f"x2; stage-2 steps FPS x2, SA x2; {nb} predict batches; "
+          f"x2; stage-2 steps FPS x2, SA x2, a filter gradient a "
+          f"convolution; {nb} predict batches; "
           f"{redecoded[0]} decoded again after a brick-cap overflow)")
     log(f"e2e on {gpu}: dataset of {n} garments at {VOL}^3 in "
         f"{r['dataset_s']:.1f} s (winding numbers on the card); launches "
@@ -2852,7 +2938,7 @@ def phase_train_trajectory(dev, tmp: pathlib.Path) -> dict:
         f"statistics); card {secs['carried, card']:.1f} s, with the CPU's "
         f"step {secs['carried']:.1f} s")
     want = {"fps": 2 * (TRAJ_STEPS * len(TRAJ_SEEDS) + CARRY_STEPS + 1),
-            "sa_tc": 0, "dense_decode_tc": 0, "ggm": 0}
+            "sa_tc": 0, "dense_decode_tc": 0, "ggm": 0, "conv3d_wgrad": 0}
     check(launches == want, f"trajectory launches {launches}, expected "
           f"{want}")
     check(step_ratio <= 1.0, "stage-1 carried step in float64: card and "
@@ -2995,7 +3081,8 @@ def sharded_engine(dev, cards: int) -> tuple:
             for k, v in launches.items():
                 total[k] += v
             want = {"fps": 2 * n_data, "sa_tc": 2 * n_data,
-                    "dense_decode_tc": n_data * n_space, "ggm": n_data}
+                    "dense_decode_tc": n_data * n_space, "ggm": n_data,
+                    "conv3d_wgrad": 0}
             log(f"sharded engine {label} {mesh.shape}, batch {i}: launches "
                 f"{launches}; encode {(t1 - t0) * 1e3:.1f} ms (queued in "
                 f"{(t_queued - t0) * 1e3:.1f}), host MC "
@@ -3230,10 +3317,13 @@ def data_parallel_training(dev, cards: int, tmp: pathlib.Path) -> dict:
             log(f"ddp stage {stage}: largest {what} as a fraction of the "
                 f"tensor's largest entry: "
                 + ", ".join(f"{f:.3e} ({n})" for f, n in fr[:3]))
-        per_step = {2: {"fps": 2, "sa_tc": 2}, 1: {"fps": 2, "sa_tc": 0}}
+        per_step = {2: {"fps": 2, "sa_tc": 2, "conv3d_wgrad": UNET_CONVS},
+                    1: {"fps": 2, "sa_tc": 0, "conv3d_wgrad": 0}}
         want = {"fps": per_step[stage]["fps"] * DDP_STEPS[stage],
                 "sa_tc": per_step[stage]["sa_tc"] * DDP_STEPS[stage],
-                "dense_decode_tc": 0, "ggm": 0}
+                "dense_decode_tc": 0, "ggm": 0,
+                "conv3d_wgrad": per_step[stage]["conv3d_wgrad"]
+                * DDP_STEPS[stage]}
         for r in ranks:
             timed = r["ms"][1:]
             ms = statistics.median(timed)

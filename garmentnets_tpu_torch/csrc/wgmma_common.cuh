@@ -1,11 +1,12 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (dense_decode_tc.cu, sa_tc.cu): shared-memory addresses, wgmma matrix
-// descriptors for the no-swizzle K-major layout, mbarriers (with a wait
-// that traps after 10 s, so that a broken pipeline fails the launch
-// instead of hanging the card), bulk copies into shared memory, the
-// wgmma.mma_async products m64 x N x k16 (bf16 in, f32 accumulate) for
-// N = 64, 128 and 256, the core-matrix offset of an operand element, the
-// bf16 hi/lo and hi/mid/lo splits of an activation pair.
+// (dense_decode_tc.cu, sa_tc.cu, conv3d_wgrad.cu): shared-memory
+// addresses, wgmma matrix descriptors for the no-swizzle K-major layout
+// and the 128- and 64-byte swizzles, mbarriers (with a wait that traps
+// after 10 s, so that a broken pipeline fails the launch instead of
+// hanging the card), bulk copies into shared memory, the wgmma.mma_async
+// products m64 x N x k16 (bf16 in, f32 accumulate) for N = 64, 128 and
+// 256 (and MN-major at N = 128), the core-matrix offset of an operand
+// element, the bf16 hi/lo and hi/mid/lo splits of an activation pair.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +27,19 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// The same descriptor for a 128- or 64-byte swizzle (layout type 1 or 2),
+// the layout a TMA tile load with CU_TENSOR_MAP_SWIZZLE_128B or _64B
+// writes: 8-row groups of 128- or 64-byte rows, aligned to the group.
+template <int kSwizzleBytes>
+__device__ __forceinline__ uint64_t make_desc_swizzled(uint32_t addr,
+                                                       uint32_t lbo,
+                                                       uint32_t sbo) {
+  static_assert(kSwizzleBytes == 128 || kSwizzleBytes == 64,
+                "128- or 64-byte swizzle");
+  return make_desc(addr, lbo, sbo) |
+         (static_cast<uint64_t>(kSwizzleBytes == 128 ? 1 : 2) << 62);
 }
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -200,6 +214,37 @@ __device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t da,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// D[64 x 128] = A[64 x 16] B[16 x 128] (+ D unless scale_d is 0), both
+// operands MN-major (transposed: M or N contiguous in 16-byte rows) in
+// shared memory, as TMA writes a channels-last tile.
+__device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d)
       : "memory");
 }
 

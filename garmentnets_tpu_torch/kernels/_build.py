@@ -28,7 +28,7 @@ import threading
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
 CSRC_DIR = PKG_DIR / "csrc"
-CUDA_SOURCES = ("fps", "ggm", "sa_tc", "dense_decode_tc")
+CUDA_SOURCES = ("fps", "ggm", "sa_tc", "dense_decode_tc", "conv3d_wgrad")
 HOST_SOURCES = ("marching", "hausdorff")
 # Libraries built from a source above with extra flags, on first use only
 # (build_all leaves them out): the ggm's radii 5..8.

@@ -8,10 +8,13 @@ SingleConv{1,2}.{groupnorm,conv,batchnorm}`, `final_conv`).
 
 Conv3d runs with TF32 off: cuDNN's TF32 default keeps ~3 decimal digits
 and would break the f32 parity bar. The 3x3x3 convolutions take their
-gradients as swapped problems (SwapGradConv3d): at the U-Net's shapes
-cuDNN's heuristics run those on engines up to 3.6x faster than the ones
-they pick for the same sums asked as input and filter gradients. 'gcr' (the shipped order) has no running statistics; an order
-with 'b' normalizes with BatchNorm3d's batch statistics in training mode
+input gradients as swapped problems (SwapGradConv3d): at the U-Net's
+shapes cuDNN's heuristics run those on engines up to 3.6x faster than the
+ones they pick for the same sums asked as input gradients. Their filter
+gradients run on the port's bf16x6 tensor-core kernel on a card
+(kernels/conv3d_wgrad) and as swapped problems elsewhere.
+'gcr' (the shipped order) has no running statistics; an order with 'b'
+normalizes with BatchNorm3d's batch statistics in training mode
 and moves its running statistics (momentum 0.1, unbiased variance), as
 the JAX MaskedBatchNorm does without a mask.
 ResidualUNet3D (reference unet3d.py:494-509) is keyed like UNet3D, with
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from garmentnets_tpu_torch.core.device import full_f32
 from garmentnets_tpu_torch.core.trace import backward_span, span
+from garmentnets_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad_cuda
 from garmentnets_tpu_torch.models.mlp import train_batch_norm
 
 
@@ -66,7 +70,7 @@ def input_grad(grad, weight, padding):
     return F.conv3d(grad, w, None, 1, pad)
 
 
-def weight_grad(grad, x, weight, padding):
+def swapped_weight_grad(grad, x, weight, padding):
     """The filter gradient of a stride-1 convolution as the filter
     gradient of the swapped problem (from grad to x), turned back: the
     same sum in another order."""
@@ -77,14 +81,30 @@ def weight_grad(grad, x, weight, padding):
     return swapped.transpose(0, 1).flip(2, 3, 4).contiguous()
 
 
+def weight_grad(grad, x, weight, padding):
+    """The filter gradient of a stride-1 convolution: on a card the
+    tensor-core kernel (kernels/conv3d_wgrad, bf16x6, f32-accurate), which
+    takes 3x3x3 at padding 1 and raises on anything else; elsewhere
+    swapped_weight_grad."""
+    if not grad.is_cuda:
+        return swapped_weight_grad(grad, x, weight, padding)
+    if tuple(weight.shape[2:]) != (3, 3, 3) or tuple(padding) != (1, 1, 1):
+        raise ValueError(f"conv3d wgrad kernel: takes a 3x3x3 kernel at "
+                         f"padding 1, got {tuple(weight.shape[2:])} at "
+                         f"padding {tuple(padding)}")
+    return conv3d_wgrad_cuda(grad, x)
+
+
 class _SwapGrad(torch.autograd.Function):
     """conv3d at stride 1 whose backward is input_grad and weight_grad,
-    in full f32 whatever flags the backward's caller has set."""
+    in full f32 whatever flags the backward's caller has set; under a
+    profiler the filter gradient is the timed span `unet3d/wgrad`
+    (core/trace.py). wgrad, if given, takes weight_grad's place."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, padding):
+    def forward(ctx, x, weight, bias, padding, wgrad=None):
         ctx.save_for_backward(x, weight)
-        ctx.padding, ctx.bias = padding, bias is not None
+        ctx.padding, ctx.bias, ctx.wgrad = padding, bias is not None, wgrad
         return F.conv3d(x, weight, bias, 1, padding)
 
     @staticmethod
@@ -96,18 +116,20 @@ class _SwapGrad(torch.autograd.Function):
             if ctx.needs_input_grad[0]:
                 gx = input_grad(grad, weight, ctx.padding)
             if ctx.needs_input_grad[1]:
-                gw = weight_grad(grad, x, weight, ctx.padding)
+                with span("unet3d/wgrad", grad.device):
+                    gw = (ctx.wgrad or weight_grad)(grad, x, weight,
+                                                    ctx.padding)
         if ctx.bias and ctx.needs_input_grad[2]:
             gb = grad.sum((0, 2, 3, 4))
-        return gx, gw, gb, None
+        return gx, gw, gb, None, None
 
 
 class SwapGradConv3d(nn.Conv3d):
     """nn.Conv3d at stride 1 (same state dict) whose gradients are
     input_grad and weight_grad: on a card the U-Net's input gradients then
     run on cuDNN's f32 implicit-GEMM forward engines and its filter
-    gradients on the swapped problem, at the same f32 sums
-    (tools/profile_unet3d.py measures both ways)."""
+    gradients on the port's kernel (csrc/conv3d_wgrad.cu), both
+    f32-accurate (tools/profile_unet3d.py measures the ways)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, padding,
                  bias):

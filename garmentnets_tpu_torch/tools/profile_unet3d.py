@@ -1,17 +1,19 @@
-"""Which cuDNN engines run the stage-2 U-Net's f32 3D convolutions, how
-fast they run, and under which way of asking cuDNN for them.
+"""Which engines run the stage-2 U-Net's f32 3D convolutions, how fast
+they run, and under which way of asking for them.
 
     python -m garmentnets_tpu_torch.tools.profile_unet3d [--batch 24] \
-        [--eval-batch 8] [--reps 10] [--out profile_unet3d.json]
+        [--eval-batch 8] [--reps 10] [--unet ResidualUNet3D] \
+        [--out profile_unet3d.json]
     python -m garmentnets_tpu_torch.tools.profile_unet3d --device cpu \
         --batch 2 --eval-batch 1 --cmp-batch 1 --volume 8 --reps 1
 
 The U-Net is the pipeline's (models/unet3d.UNet3D at PipelineConfig's
-widths: 'gcr', f_maps 32, 4 levels, 128 channels in and out, 32^3), run
-as UNet3D.forward runs it, from a [B, D, H, W, C] volume to one. Every
-candidate computes in f32 with TF32 off (cuDNN's allow_tf32 off, matmul
-precision "highest"); they differ only in how the convolutions are asked
-of cuDNN:
+widths: 'gcr', f_maps 32, 4 levels, 128 channels in and out, 32^3; with
+--unet ResidualUNet3D, pytorch-3dunet's residual U-Net at its class
+defaults: f_maps 64, 5 levels), run as UNet3D.forward runs it, from a
+[B, D, H, W, C] volume to one. Every candidate computes in f32 with TF32
+off (cuDNN's allow_tf32 off, matmul precision "highest"); they differ
+only in how the convolutions are asked for:
 
 - heuristic: NCDHW, cudnn.benchmark off (cuDNN's heuristic picks), each
   convolution a plain nn.Conv3d: the port before SwapGradConv3d;
@@ -19,9 +21,13 @@ of cuDNN:
   cudnn.benchmark_limit engines at each new shape and keeps the fastest);
 - ndhwc: the volume and the weights in torch.channels_last_3d, heuristic;
 - search+ndhwc: both;
-- port: the U-Net as the port runs it (models/unet3d.SwapGradConv3d: the
-  input gradient as a forward convolution, the filter gradient of the
-  swapped problem), heuristic.
+- port: SwappedWgradConv3d, models/unet3d.SwapGradConv3d with the
+  filter gradient of the swapped problem on cuDNN
+  (unet3d.swapped_weight_grad; the input gradient as a forward
+  convolution), heuristic: the port before the filter-gradient kernel;
+- kernel: the U-Net as the port runs it: SwapGradConv3d with the filter
+  gradient on the port's kernel (unet3d.weight_grad: csrc/conv3d_wgrad.cu
+  on a card, the swapped problem on the CPU).
 
 PyTorch keeps the plans it chose for the life of the process, so each
 candidate runs in a process of its own, where every search starts cold.
@@ -34,7 +40,8 @@ Prints, each candidate:
   mean of --reps), the eval forward (no_grad) at --eval-batch, the share
   of the 67 TFLOP/s f32 roofline of each, and the number and device ms of
   `aten::copy_` calls in one forward+backward (layout copies);
-- for each of the 15 convolutions (14 3x3x3 and the final 1x1x1): the
+- for each convolution (UNet3D's 14 3x3x3 and its final 1x1x1;
+  ResidualUNet3D's 27 and its final one; not the transposed ones): the
   device ms of its forward, dgrad (input gradient) and wgrad (filter
   gradient), each alone at the U-Net's shapes and strides (as the
   candidate asks for it: aten.convolution_backward asked for one
@@ -69,20 +76,36 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from garmentnets_tpu_torch.models import unet3d
-from garmentnets_tpu_torch.models.pipeline import PipelineConfig
+from garmentnets_tpu_torch.models.pipeline import UNETS, PipelineConfig
 from garmentnets_tpu_torch.tools.profile_encode import _device_ms
 
 F32_PEAK = 67e12          # FLOP/s of f32 outside the tensor cores (H100 SXM)
 CL = torch.channels_last_3d
 NCDHW = torch.contiguous_format
-# name: (cudnn.benchmark, layout, the port's swapped gradients)
+
+
+class SwappedWgradConv3d(unet3d.SwapGradConv3d):
+    """SwapGradConv3d whose filter gradient is the swapped problem on every
+    device (unet3d.swapped_weight_grad): the port before the
+    filter-gradient kernel."""
+    wgrad = staticmethod(unet3d.swapped_weight_grad)
+
+    def forward(self, x):
+        return unet3d._SwapGrad.apply(x, self.weight, self.bias,
+                                      self.padding, self.wgrad)
+
+
+# name: (cudnn.benchmark, layout, the module of each 3x3x3 convolution)
 CANDIDATES = {
-    "heuristic": (False, NCDHW, False),
-    "search": (True, NCDHW, False),
-    "ndhwc": (False, CL, False),
-    "search+ndhwc": (True, CL, False),
-    "port": (False, NCDHW, True),
+    "heuristic": (False, NCDHW, torch.nn.Conv3d),
+    "search": (True, NCDHW, torch.nn.Conv3d),
+    "ndhwc": (False, CL, torch.nn.Conv3d),
+    "search+ndhwc": (True, CL, torch.nn.Conv3d),
+    "port": (False, NCDHW, SwappedWgradConv3d),
+    "kernel": (False, NCDHW, unet3d.SwapGradConv3d),
 }
+# pytorch-3dunet's ResidualUNet3D class defaults (the residual cell's)
+RESIDUAL = dict(f_maps=64, num_levels=5)
 DIRECTIONS = ("fprop", "dgrad", "wgrad")
 
 
@@ -165,29 +188,34 @@ def _copies(fn, dev) -> tuple:
     return 0, 0.0
 
 
-def build_unet(dev, layout, swap: bool, seed: int = 0) -> unet3d.UNet3D:
-    """The pipeline's U-Net; swap False: each SwapGradConv3d replaced by
-    an nn.Conv3d with the same weights (the port before it)."""
+def build_unet(dev, layout, conv_cls=unet3d.SwapGradConv3d, seed: int = 0,
+               unet: str = "UNet3D") -> torch.nn.Module:
+    """The pipeline's U-Net (unet "UNet3D") or the residual one
+    ("ResidualUNet3D", RESIDUAL's widths), each SwapGradConv3d replaced
+    by a conv_cls with the same weights (nn.Conv3d: the port before
+    SwapGradConv3d)."""
     c = PipelineConfig()
     torch.manual_seed(seed)
-    net = unet3d.UNet3D(c.unet_in_channels, c.unet_out_channels,
-                 f_maps=c.unet_f_maps, layer_order=c.unet_layer_order,
-                 num_groups=c.unet_num_groups,
-                 num_levels=c.unet_num_levels).to(dev)
-    if not swap:
+    widths = (dict(f_maps=c.unet_f_maps, num_levels=c.unet_num_levels)
+              if unet == "UNet3D" else RESIDUAL)
+    net = UNETS[unet](c.unet_in_channels, c.unet_out_channels,
+                             layer_order=c.unet_layer_order,
+                             num_groups=c.unet_num_groups,
+                             **widths).to(dev)
+    if conv_cls is not unet3d.SwapGradConv3d:
         for m in list(net.modules()):
             conv = getattr(m, "conv", None)
             if isinstance(conv, unet3d.SwapGradConv3d):
-                plain = torch.nn.Conv3d(
+                other = conv_cls(
                     conv.in_channels, conv.out_channels, conv.kernel_size,
-                    padding=conv.padding, bias=conv.bias is not None,
-                    device=dev)
-                plain.load_state_dict(conv.state_dict())
-                m.conv = plain
+                    padding=conv.padding,
+                    bias=conv.bias is not None).to(dev)
+                other.load_state_dict(conv.state_dict())
+                m.conv = other
     return net.to(memory_format=layout)
 
 
-def unet_apply(net: unet3d.UNet3D, x, layout):
+def unet_apply(net: torch.nn.Module, x, layout):
     """UNet3D.forward with the volume in `layout` inside:
     [B, D, H, W, C] -> [B, D, H, W, C_out]."""
     h = x.permute(0, 4, 1, 2, 3)
@@ -219,6 +247,23 @@ def conv_specs(net, x, layout) -> list:
     return specs
 
 
+def wgrad_shapes(unet: str, batch: int, volume: int) -> list:
+    """The distinct (B, Cin, Cout, side) of `unet`'s 3x3x3 convolutions
+    (the filter-gradient kernel's problems) at a [batch, volume^3] input,
+    in module order, from a forward on the meta device."""
+    with torch.device("meta"):
+        specs = conv_specs(build_unet("meta", NCDHW, unet=unet),
+                           torch.empty(batch, volume, volume, volume,
+                                       PipelineConfig().unet_in_channels),
+                           NCDHW)
+    shapes = []
+    for s in specs:
+        shape = (s["x"][0][0], s["x"][0][1], s["w"][0][0], s["x"][0][2])
+        if s["swap"] and shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
 def conv_flops(spec) -> float:
     """2 k^3 B V Cin Cout: the operations of one direction."""
     (b, cin, *_), (cout, _, *k) = spec["x"][0], spec["w"][0]
@@ -237,18 +282,19 @@ def _strided(shape_stride, dev, gen):
     return t.normal_(generator=gen)
 
 
-def conv_direction_fns(spec, dev, gen, swap: bool) -> dict:
-    """The forward, input gradient and filter gradient of one convolution;
-    swap: the gradients as SwapGradConv3d takes them (where the U-Net's
-    module is one), else aten.convolution_backward asked for one."""
+def conv_direction_fns(spec, dev, gen, conv_cls) -> dict:
+    """The forward, input gradient and filter gradient of one convolution:
+    the gradients as conv_cls takes them where the U-Net's module is a
+    SwapGradConv3d, else aten.convolution_backward asked for one."""
     x = _strided(spec["x"], dev, gen)
     w = _strided(spec["w"], dev, gen)
     gy = _strided(spec["y"], dev, gen)
     p, s1, z = list(spec["padding"]), [1, 1, 1], [0, 0, 0]
     fns = {"fprop": lambda: F.conv3d(x, w, None, 1, spec["padding"])}
-    if swap and spec["swap"]:
+    if spec["swap"]:
+        wgrad = getattr(conv_cls, "wgrad", unet3d.weight_grad)
         fns["dgrad"] = lambda: unet3d.input_grad(gy, w, spec["padding"])
-        fns["wgrad"] = lambda: unet3d.weight_grad(gy, x, w, spec["padding"])
+        fns["wgrad"] = lambda: wgrad(gy, x, w, spec["padding"])
         return fns
 
     def grad(mask):
@@ -287,28 +333,29 @@ def run_candidate(name: str, args, dev) -> dict:
     first call at each direction is where the search, if on, runs and is
     timed), then the whole U-Net and its eval forward, then the output
     and gradients at --cmp-batch for the comparison."""
-    benchmark, layout, swap = CANDIDATES[name]
+    benchmark, layout, conv_cls = CANDIDATES[name]
     clock = _Clock(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     c = PipelineConfig()
     V, C = args.volume, c.unet_in_channels
     out = {"candidate": name}
     with torch.device("meta"):     # the shapes and strides, no plan cached
-        specs = conv_specs(build_unet("meta", layout, swap),
+        specs = conv_specs(build_unet("meta", layout, conv_cls,
+                                      unet=args.unet),
                            torch.empty(args.batch, V, V, V, C), layout)
     with cudnn_flags(benchmark):
         convs = []
         for spec in specs:
             row = {"name": spec["name"], "flops": conv_flops(spec),
                    "x": spec["x"][0], "w": spec["w"][0]}
-            for d, fn in conv_direction_fns(spec, dev, gen, swap).items():
+            for d, fn in conv_direction_fns(spec, dev, gen, conv_cls).items():
                 row[d + "_first_s"] = _first_s(fn, dev)
                 row[d + "_ms"] = timed(fn, clock, args.reps)
                 row[d + "_kernels"] = _top_kernels(fn, dev)
             convs.append(row)
         out["convs"] = convs
 
-        net = build_unet(dev, layout, swap)
+        net = build_unet(dev, layout, conv_cls, unet=args.unet)
         x = torch.randn(args.batch, V, V, V, C, device=dev, generator=gen)
         x.requires_grad_(True)
         gy = torch.randn(args.batch, V, V, V, c.unet_out_channels,
@@ -345,7 +392,7 @@ def run_candidate(name: str, args, dev) -> dict:
             out["peak_bytes"] = int(torch.cuda.max_memory_allocated())
 
         # the output and gradients at a small batch, for the comparison
-        cmp_net = build_unet(dev, layout, swap, seed=2)
+        cmp_net = build_unet(dev, layout, conv_cls, seed=2, unet=args.unet)
         g2 = torch.Generator(device=dev).manual_seed(3)
         xc = torch.randn(args.cmp_batch, V, V, V, C, device=dev,
                          generator=g2).requires_grad_(True)
@@ -422,8 +469,8 @@ def _share(flops: float, ms: float) -> float:
 def report(res: dict, args) -> None:
     print(f"device: {res['device']}; {res['smi']}; torch "
           f"{res['torch']}, CUDA {res['cuda']}, cuDNN {res['cudnn']}")
-    print(f"U-Net at B={args.batch}, {args.volume}^3, f32 with TF32 off; "
-          f"eval forward at B={args.eval_batch}; shares of "
+    print(f"{args.unet} at B={args.batch}, {args.volume}^3, f32 with TF32 "
+          f"off; eval forward at B={args.eval_batch}; shares of "
           f"{F32_PEAK / 1e12:.0f} TFLOP/s")
     heur = res["candidates"]["heuristic"]
     total = sum(r["flops"] for r in heur["convs"])
@@ -504,6 +551,7 @@ def main(argv=None) -> None:
     ap.add_argument("--cmp-batch", type=int, default=2)
     ap.add_argument("--volume", type=int, default=32)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--unet", default="UNet3D", choices=tuple(UNETS))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="profile_unet3d.json")
     ap.add_argument("--candidates", default=",".join(CANDIDATES),

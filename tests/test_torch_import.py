@@ -52,7 +52,7 @@ EXPECTED = [
         "harness.train_pipeline", "harness.vis_hooks", "ops.normals",
         "ops.isosurface", "models.unet3d", "parallel.mesh",
         "tools.e2e_synthetic", "tools.export_meshes", "tools.bench_input",
-        "tools.profile_unet3d")]
+        "tools.profile_unet3d", "kernels.conv3d_wgrad")]
 
 
 def _env():

@@ -190,16 +190,19 @@ def _fake_card(monkeypatch):
 def test_unet_spans_on_a_faked_card(monkeypatch, tmp_path):
     """With the card's events faked on the CPU: one timed forward and one
     backward pair (entry before exit) a step, none for the backward of a
-    volume that takes no gradient, and the same numbers as without."""
+    volume that takes no gradient, one filter-gradient pair for each of
+    the six convolutions a step, and the same numbers as without."""
     plain = _unet_step(_volume())
     _fake_card(monkeypatch)
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         timed = [_unet_step(_volume()) for _ in range(2)]
         _unet_step(_volume(requires_grad=False))
-    # each exit is recorded one tick after its entry
+    # each exit is recorded one tick after its entry; a backward's exit
+    # 13 ticks after: its six filter gradients' pairs lie between
     assert trace.device_ms() == {"unet3d/forward": (3.0, 3),
-                                 "unet3d/backward": (2.0, 2)}
+                                 "unet3d/backward": (26.0, 2),
+                                 "unet3d/wgrad": (18.0, 18)}
     for y, grad, grads in timed:
         assert torch.equal(y, plain[0]) and torch.equal(grad, plain[1])
         assert all(torch.equal(a, b) for a, b in zip(grads, plain[2]))
@@ -212,13 +215,15 @@ def test_unet_spans_on_a_faked_card(monkeypatch, tmp_path):
 
 
 RESIDUAL_SPANS = {"unet3d/forward": 1, "unet3d/backward": 1,
-                  "unet3d/upsample": 4, "unet3d/upsample_backward": 4}
+                  "unet3d/upsample": 4, "unet3d/upsample_backward": 4,
+                  "unet3d/wgrad": 27}
 
 
 def test_residual_unet_spans_on_a_faked_card(monkeypatch, tmp_path):
     """ResidualUNet3D on a faked card: a timed forward and backward pair a
-    step, and one upsample and upsample_backward pair for each of its four
-    transposed convolutions; where the volume takes no gradient, no
+    step, one upsample and upsample_backward pair for each of its four
+    transposed convolutions and one filter-gradient pair for each of its
+    27 3x3x3 ones; where the volume takes no gradient, no
     unet3d/backward (the upsamplings' inputs still take one, for the
     weights); the same numbers as without."""
     plain = _unet_step(_volume(side=16), residual=True)
@@ -263,7 +268,8 @@ def test_residual_unet_records_nothing_without_a_profiler(monkeypatch):
 def test_unet_timers_on_a_card():
     """The U-Net's forward and backward timers on the card: one pair each
     a step, the backward's inside the step's wall time and longer than
-    none, both absent without a profiler."""
+    none, and one filter-gradient pair for each of its ten 3x3x3
+    convolutions a step; all absent without a profiler."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the timers are CUDA events")
     dev = torch.device("cuda", 0)
@@ -286,6 +292,43 @@ def test_unet_timers_on_a_card():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     got = trace.device_ms()
-    assert sorted(got) == ["unet3d/backward", "unet3d/forward"]
+    assert sorted(got) == ["unet3d/backward", "unet3d/forward",
+                           "unet3d/wgrad"]
     for name, (ms, n) in got.items():
-        assert n == 3 and 0 < ms < wall_ms, (name, ms, n)
+        assert n == 3 * (10 if name == "unet3d/wgrad" else 1) \
+            and 0 < ms < wall_ms, (name, ms, n)
+    assert got["unet3d/wgrad"][0] < got["unet3d/backward"][0]
+
+
+@pytest.mark.parametrize("residual,convs", [(False, 6), (True, 27)])
+def test_unet_wgrad_spans_one_pair_a_convolution(monkeypatch, tmp_path,
+                                                  residual, convs):
+    """Under a profiler on a faked card, `unet3d/wgrad` (each 3x3x3
+    convolution's filter gradient, models/unet3d._SwapGrad) is one timed
+    pair and one named range for each convolution of each step; without
+    a profiler nothing is recorded and the gradients are the same."""
+    side = 16 if residual else 4
+    plain = _unet_step(_volume(side=side), residual)
+    _fake_card(monkeypatch)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        timed = [_unet_step(_volume(side=side), residual) for _ in range(2)]
+    ms, n = trace.device_ms()["unet3d/wgrad"]
+    assert (ms, n) == (2.0 * convs, 2 * convs)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    assert names.count("unet3d/wgrad") == 2 * convs
+    for _, _, grads in timed:
+        assert all(torch.equal(a, b) for a, b in zip(grads, plain[2]))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("timed without a profiler")
+
+    monkeypatch.setattr(trace, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    trace.reset()
+    _unet_step(_volume(side=side), residual)
+    assert trace.device_ms() == {}
